@@ -1,0 +1,454 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``remixt_tpu_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure exits non-zero:
+
+1. Environment: the card's name and power limit, the torch and CUDA
+   versions; builds the CUDA kernels from ``remixt_tpu_torch/csrc`` into
+   ``build/remixt_tpu_torch/`` and prints the build time.
+2. Kernel vs plain: the whole-genome problem (N=6000 segments at 500 kb,
+   M=3 clones, max copy number 12 → S=355 states, 300 events, 23 chains)
+   with one wave of R=8 restarts. One forward-backward through the CUDA
+   kernel and one through its plain PyTorch version, both on the card in
+   float32, compared on entries within 60 nats of their row maximum at
+   atol 2e-4 / rtol 1e-5 and on log_norm at rtol 1e-5. Times both.
+3. The slice at full width: ``analysis.pipeline.fit_many`` on that
+   experiment with the 8 restarts, 2 EM iterations × 2 VI sweeps (the one
+   cut: the defaults are 5 × 5). Checks finite ELBOs, the decoded copy
+   number's shape, and that every chain forward-backward of the run went
+   through the kernel.
+4. float32 on the card vs float64 on the CPU at a small size (N=60, max
+   copy number 4, R=4, 5 sweeps): posterior max-abs-diff ≤ 1e-3.
+5. Where the time goes: the full-width fit once more (1 EM × 2 VI) under
+   ``torch.profiler``: the device's busy share, device time per fit stage,
+   and the kernels with the most device time.
+
+The line before the last holds the kernel table as JSON; the last line is
+``{"ok": true, "device": {...}}``.
+"""
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+# H100 SXM published peaks: HBM bandwidth, fp32 outside the tensor cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP32_FLOP_PER_S = 67e12
+
+N_FULL, EVENTS_FULL, CHAINS_FULL, CN_MAX_FULL = 6000, 300, 23, 12
+WAVE = 8
+NUM_EM_ITER, NUM_UPDATE_ITER = 2, 2
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def simulate(N, cn_max, num_events, num_chains, seed):
+    from remixt_tpu_torch.simulations import simple as sim
+    return sim.simulate_experiment(
+        N=N, M=3, h=(0.08, 0.05, 0.025), cn_max=cn_max,
+        num_events=num_events, num_chains=num_chains, seed=seed)
+
+
+def make_model(data, cn_max, device, dtype):
+    from remixt_tpu_torch.models.fit import BreakpointModel
+    return BreakpointModel(
+        data['x'], data['l'], data['adjacencies'], data['breakpoints'],
+        max_copy_number=cn_max, max_depth=1e9, min_segment_length=1.0,
+        min_proportion_genotyped=0.0, divergence_weight=1e-7,
+        random_seed=1234, device=device, dtype=dtype)
+
+
+def restart_grid(h, num_restarts, seed=1):
+    """h initializations spread around the truth, and divergence weights."""
+    rng = np.random.RandomState(seed)
+    h_inits = [h * (1.0 + 0.1 * rng.rand(3)) for _ in range(num_restarts)]
+    weights = [10.0 ** -rng.randint(6, 9) for _ in range(num_restarts)]
+    return h_inits, weights
+
+
+def initial_batch(model, h_inits, weights):
+    from remixt_tpu_torch.models import engine as eng
+    spec = model._build_spec(3)
+    params_b = eng.stack([
+        spec.init_params(h, w,
+                         total_mask=model._total_likelihood_mask.astype(float),
+                         allele_mask=model._allele_likelihood_mask.astype(
+                             float))
+        for h, w in zip(h_inits, weights)])
+    state_b = eng.stack([spec.init_state()] * len(h_inits))
+    return spec, params_b, state_b
+
+
+def cuda_ms(fn, reps):
+    """Median device time of ``fn`` over ``reps`` runs, after a warm-up."""
+    import torch
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def phase_environment():
+    import torch
+    from remixt_tpu_torch.ops import _build
+    smi = subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'],
+        capture_output=True, text=True, check=True).stdout.strip()
+    log('torch {} cuda {} python {}'.format(
+        torch.__version__, torch.version.cuda, sys.version.split()[0]))
+    log('card: ' + smi)
+    t0 = time.time()
+    _build.load('fb_grouped')
+    log('phase 1: built fb_grouped in {:.2f} s'.format(time.time() - t0))
+    for line in _build.build_logs.get('fb_grouped', '').splitlines():
+        if 'registers' in line or 'spill' in line or 'smem' in line:
+            log('  ptxas: ' + line.strip())
+    return smi
+
+
+def phase_kernel(data):
+    """The kernel against its plain version at the main path's shapes."""
+    import torch
+    from remixt_tpu_torch.models import engine as eng
+    from remixt_tpu_torch.ops import fb_grouped
+
+    model = make_model(data, CN_MAX_FULL, 'cuda', torch.float32)
+    h_inits, weights = restart_grid(data['h'], WAVE)
+    spec, params_b, state_b = initial_batch(model, h_inits, weights)
+    log('phase 2: N={} S={} M={} K={} J={} Q={} L={} R={}'.format(
+        spec.N, spec.S, spec.M, spec.K, spec.J, spec.Q, spec.L, WAVE))
+    with torch.no_grad():
+        ll_tot, ll_alle = eng.emission_tensors(spec, params_b)
+        frame_b = eng._mix_framelogprob(spec, params_b, state_b, ll_tot,
+                                        ll_alle)
+        del ll_tot, ll_alle
+        be_exp_b = eng.breakend_tmats_exp(spec, state_b.p_breakpoint)
+        frames = fb_grouped.gather_frames(frame_b, spec.chain_seg_map)
+        frames = frames.contiguous()
+        static_exp = torch.exp(spec.static_bank).contiguous()
+        cbi = spec.chain_bank_idx.contiguous()
+
+        a_k, b_k = fb_grouped.fb_grouped_cuda(frames, static_exp, be_exp_b,
+                                              cbi)
+        torch.cuda.synchronize()
+        a_p, b_p = fb_grouped.fb_grouped_reference(frames, static_exp,
+                                                   be_exp_b, cbi)
+        torch.cuda.synchronize()
+
+        max_err = 0.0
+        for got, ref in ((a_k, a_p), (b_k, b_p)):
+            if not (torch.isfinite(got).all() and torch.isfinite(ref).all()):
+                raise AssertionError('non-finite forward-backward messages')
+            significant = ref > ref.amax(dim=-1, keepdim=True) - 60.0
+            diff = (got - ref).abs()[significant]
+            tol = 2e-4 + 1e-5 * ref.abs()[significant]
+            max_err = max(max_err, float(diff.max()))
+            if not bool((diff <= tol).all()):
+                raise AssertionError(
+                    'kernel disagrees with its plain version: max abs '
+                    'diff {:.3e}'.format(float(diff.max())))
+        N = spec.N
+        _, _, ln_k = fb_grouped._scatter_and_norm(
+            a_k, b_k, spec.chain_seg_map, spec.chain_last, N)
+        _, _, ln_p = fb_grouped._scatter_and_norm(
+            a_p, b_p, spec.chain_seg_map, spec.chain_last, N)
+        np.testing.assert_allclose(ln_k.cpu().numpy(), ln_p.cpu().numpy(),
+                                   rtol=1e-5)
+        del a_p, b_p
+
+        ms = cuda_ms(lambda: fb_grouped.fb_grouped_cuda(
+            frames, static_exp, be_exp_b, cbi), reps=7)
+        plain_ms = cuda_ms(lambda: fb_grouped.fb_grouped_reference(
+            frames, static_exp, be_exp_b, cbi), reps=5)
+
+    R, Q, L, S = frames.shape
+    J = be_exp_b.shape[1]
+    nbytes = 4 * (frames.numel() + static_exp.numel() + be_exp_b.numel()
+                  + cbi.numel() + a_k.numel() + b_k.numel())
+    steps = spec.chain_bank_idx[:, :L - 1].cpu().numpy()
+    matvec_steps = int((steps != 0).sum())
+    cut_steps = int((steps == 0).sum())
+    # per direction and restart: a 2·S² flop matvec per non-cut step, an
+    # S-add sum per cut step, and ~4 flops per state per step around them
+    flops = 2 * R * (matvec_steps * 2 * S * S + cut_steps * S
+                     + (matvec_steps + cut_steps) * 4 * S)
+    bytes_ms = 1e3 * nbytes / PEAK_BYTES_PER_S
+    flops_ms = 1e3 * flops / PEAK_FP32_FLOP_PER_S
+    bound_ms = max(bytes_ms, flops_ms)
+    bound_by = 'bytes' if bytes_ms >= flops_ms else 'operations'
+    log('phase 2: kernel {:.3f} ms, plain {:.3f} ms, bound {:.3f} ms ({}; '
+        '{:.3f} GB, {:.3f} GFLOP), max abs diff {:.3e}, J={}'.format(
+            ms, plain_ms, bound_ms, bound_by, nbytes / 1e9, flops / 1e9,
+            max_err, J))
+    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def phase_fit(data):
+    """fit_many at full width, with per-stage wall times."""
+    import torch
+    from remixt_tpu_torch.analysis import pipeline
+    from remixt_tpu_torch.analysis.experiment import Experiment
+    from remixt_tpu_torch.models import em, engine as eng
+    from remixt_tpu_torch.ops import fb_grouped
+
+    h_inits, weights = restart_grid(data['h'], WAVE)
+    init_params = {
+        i: dict(mode_idx=0, h_normal=h[0], h_tumour=h[1] + h[2],
+                mix_frac=h[1] / (h[1] + h[2]), divergence_weight=w,
+                max_depth=1e9)
+        for i, (h, w) in enumerate(zip(h_inits, weights))}
+    config = dict(max_copy_number=CN_MAX_FULL, num_em_iter=NUM_EM_ITER,
+                  num_update_iter=NUM_UPDATE_ITER,
+                  likelihood_min_segment_length=1.0,
+                  likelihood_min_proportion_genotyped=0.0,
+                  restart_chunk_size=WAVE, random_seed=1234)
+    experiment = Experiment(data['x'], data['l'], data['adjacencies'],
+                            data['breakpoints'])
+
+    stages = {}
+
+    def timed(module, name, label):
+        fn = getattr(module, name)
+
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            stages.setdefault(label, []).append(time.time() - t0)
+            return out
+        setattr(module, name, wrapper)
+        return fn
+
+    originals = [
+        (eng, 'variational_sweeps_restarts',
+         timed(eng, 'variational_sweeps_restarts', 'sweeps')),
+        (eng, 'calculate_elbo_restarts',
+         timed(eng, 'calculate_elbo_restarts', 'initial_elbo')),
+        (em, 'update_h_fused_batched',
+         timed(em, 'update_h_fused_batched', 'h_update')),
+        (em, 'param_sample_weights_all_batched',
+         timed(em, 'param_sample_weights_all_batched', 'sample_weights')),
+        (em, 'update_params_fused_batched',
+         timed(em, 'update_params_fused_batched', 'params_update_elbo')),
+    ]
+    torch.cuda.reset_peak_memory_stats()
+    fb_grouped.LAUNCHES = 0
+    t0 = time.time()
+    try:
+        results = pipeline.fit_many(experiment, init_params, config)
+    finally:
+        for module, name, fn in originals:
+            setattr(module, name, fn)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = fb_grouped.LAUNCHES
+
+    waves = -(-len(init_params) // WAVE)
+    expected = waves * NUM_EM_ITER * NUM_UPDATE_ITER
+    if launches != expected:
+        raise AssertionError('fb_grouped launched {} times in the fit, '
+                             'expected {}'.format(launches, expected))
+    elbos = np.array([r['stats']['elbo'] for r in results.values()])
+    if not np.all(np.isfinite(elbos)):
+        raise AssertionError('non-finite ELBO: {}'.format(elbos))
+    for r in results.values():
+        if r['cn'].shape != (N_FULL, 3, 2):
+            raise AssertionError('cn shape {}'.format(r['cn'].shape))
+        if not np.all(np.isfinite(r['h'])):
+            raise AssertionError('non-finite h')
+
+    per_em = [sum(stages[k][i] for k in ('sweeps', 'h_update',
+                                         'sample_weights',
+                                         'params_update_elbo'))
+              for i in range(NUM_EM_ITER)]
+    per_sweep = [s / NUM_UPDATE_ITER for s in stages['sweeps']]
+    truth = data['cn'][:, 1:, :]
+    best = max(results.values(), key=lambda r: r['stats']['elbo'])
+    dec = best['cn'][:, 1:, :]
+    exact = (np.all(dec == truth, axis=(1, 2))
+             | np.all(dec == truth[:, :, ::-1], axis=(1, 2)))
+    log('phase 3: fit_many, {} restarts in {} wave(s), {} EM x {} VI '
+        '(depth cut from the 5 x 5 defaults)'.format(
+            len(init_params), waves, NUM_EM_ITER, NUM_UPDATE_ITER))
+    log('phase 3: wall {:.3f} s; per EM iteration {} s; per sweep {} s'
+        .format(wall, ['{:.3f}'.format(x) for x in per_em],
+                ['{:.3f}'.format(x) for x in per_sweep]))
+    log('phase 3: stages ' + json.dumps(
+        {k: [round(x, 4) for x in v] for k, v in stages.items()}))
+    log('phase 3: max_memory_allocated {:.3f} GB, fb_grouped launches {}, '
+        'ELBOs {}'.format(torch.cuda.max_memory_allocated() / 1e9, launches,
+                          np.array2string(elbos, precision=2)))
+    log('phase 3: best restart h {}, exact tumour cn on {:.3f} of segments'
+        .format(np.array2string(best['h'], precision=5), exact.mean()))
+    return launches
+
+
+def phase_profile(data):
+    """One more full-width fit (1 EM × 2 VI) under torch.profiler: the
+    device's busy share of the wall time, device time per fit stage, and
+    the kernels that take the most device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from remixt_tpu_torch.analysis import pipeline
+    from remixt_tpu_torch.analysis.experiment import Experiment
+    from remixt_tpu_torch.models import em, engine as eng
+
+    h_inits, weights = restart_grid(data['h'], WAVE)
+    init_params = {
+        i: dict(mode_idx=0, h_normal=h[0], h_tumour=h[1] + h[2],
+                mix_frac=h[1] / (h[1] + h[2]), divergence_weight=w,
+                max_depth=1e9)
+        for i, (h, w) in enumerate(zip(h_inits, weights))}
+    config = dict(max_copy_number=CN_MAX_FULL, num_em_iter=1,
+                  num_update_iter=NUM_UPDATE_ITER,
+                  likelihood_min_segment_length=1.0,
+                  likelihood_min_proportion_genotyped=0.0,
+                  restart_chunk_size=WAVE, random_seed=1234)
+    experiment = Experiment(data['x'], data['l'], data['adjacencies'],
+                            data['breakpoints'])
+
+    def labelled(module, name, label):
+        fn = getattr(module, name)
+
+        def wrapper(*args, **kwargs):
+            with record_function('stage:' + label):
+                return fn(*args, **kwargs)
+        setattr(module, name, wrapper)
+        return module, name, fn
+
+    originals = [
+        labelled(eng, 'variational_sweeps_restarts', 'sweeps'),
+        labelled(eng, 'calculate_elbo_restarts', 'initial_elbo'),
+        labelled(em, 'update_h_fused_batched', 'h_update'),
+        labelled(em, 'update_params_fused_batched', 'params_update_elbo'),
+        labelled(eng, 'viterbi_decode', 'viterbi_decode'),
+    ]
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            torch.cuda.synchronize()
+            t0 = time.time()
+            pipeline.fit_many(experiment, init_params, config)
+            torch.cuda.synchronize()
+            wall_us = 1e6 * (time.time() - t0)
+    finally:
+        for module, name, fn in originals:
+            setattr(module, name, fn)
+
+    # device activity: kernels, copies and sets, not the stage annotations
+    # the profiler mirrors onto the device timeline
+    intervals = sorted(
+        (e.time_range.start, e.time_range.end) for e in prof.events()
+        if e.device_type == DeviceType.CUDA
+        and not e.name.startswith('stage:'))
+    busy, end = 0.0, -np.inf
+    for s, e in intervals:
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    if not intervals:
+        log('phase 5: the profiler saw no device time: busy share not '
+            'measured')
+        return
+    log('phase 5: profiled fit (1 EM x {} VI): wall {:.1f} ms, device busy '
+        '{:.1f} ms ({:.1%}), {} device events'.format(
+            NUM_UPDATE_ITER, wall_us / 1e3, busy / 1e3, busy / wall_us,
+            len(intervals)))
+
+    def device_us(row):
+        return getattr(row, 'device_time_total',
+                       getattr(row, 'cuda_time_total', 0.0))
+
+    def self_device_us(row):
+        return getattr(row, 'self_device_time_total',
+                       getattr(row, 'self_cuda_time_total', 0.0))
+
+    rows = prof.key_averages()
+    # a stage's host-side row: its wall time on the host and the device
+    # time of the kernels it launched
+    for row in sorted((r for r in rows if r.key.startswith('stage:')
+                       and r.cpu_time_total > 0),
+                      key=lambda r: r.cpu_time_total, reverse=True):
+        log('phase 5: {:<26s} calls {:2d}  host {:8.1f} ms  kernels '
+            '{:8.1f} ms'.format(row.key[6:], row.count,
+                                row.cpu_time_total / 1e3,
+                                device_us(row) / 1e3))
+    kernels = [r for r in rows if r.device_type == DeviceType.CUDA
+               and not r.key.startswith('stage:')]
+    for row in sorted(kernels, key=self_device_us, reverse=True)[:8]:
+        log('phase 5: kernel {:<56.56s} calls {:6d}  device {:8.2f} ms'
+            .format(row.key, row.count, self_device_us(row) / 1e3))
+
+
+def phase_small_f32_vs_f64():
+    import torch
+    from remixt_tpu_torch.models import engine as eng
+
+    data = simulate(60, 4, 8, 2, seed=2)
+    h_inits, weights = restart_grid(data['h'], 4, seed=3)
+    marg = {}
+    for device, dtype in (('cuda', torch.float32), ('cpu', torch.float64)):
+        model = make_model(data, 4, device, dtype)
+        spec, params_b, state_b = initial_batch(model, h_inits, weights)
+        state_b = eng.variational_sweeps_restarts(spec, params_b, state_b, 5)
+        marg[device] = state_b.posterior_marginals.double().cpu().numpy()
+    diff = float(np.abs(marg['cuda'] - marg['cpu']).max())
+    log('phase 4: f32 card vs f64 CPU, N=60 S={} R=4, 5 sweeps: posterior '
+        'max abs diff {:.3e}'.format(marg['cpu'].shape[-1], diff))
+    if not diff <= 1e-3:
+        raise AssertionError('f32 posteriors differ from f64 by {}'.format(
+            diff))
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        print('chip_smoke: no CUDA device', file=sys.stderr)
+        return 1
+    from remixt_tpu_torch.device import resolve_device
+    resolve_device('cuda')   # TF32 off
+
+    smi = phase_environment()
+    data = simulate(N_FULL, CN_MAX_FULL, EVENTS_FULL, CHAINS_FULL, seed=0)
+    kernel = phase_kernel(data)
+    launches = phase_fit(data)
+    phase_small_f32_vs_f64()
+    phase_profile(data)
+
+    log(smi)
+    table = {'kernels': [dict(
+        name='fb_grouped', route='cuda',
+        source='remixt_tpu_torch/csrc/fb_grouped.cu',
+        replaces='remixt_tpu/ops/fb_pallas.py:744',
+        launches=launches, max_abs_err=kernel['max_abs_err'],
+        ms=kernel['ms'], plain_ms=kernel['plain_ms'],
+        bound_ms=kernel['bound_ms'], bound_by=kernel['bound_by'],
+        library_ms=None)]}
+    log(json.dumps(table))
+    log(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+        'count': torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

@@ -1,0 +1,224 @@
+// Chain-batched, log-space HMM forward-backward for a wave of restarts.
+//
+// Replaces the TPU kernel _fb_kernel_grouped (remixt_tpu/ops/fb_pallas.py:744)
+// and computes what forward_backward_chains_pallas_grouped computes
+// (fb_pallas.py:1159), laid out for a GPU rather than copied block by block:
+// no one-hot class plane, no flat junction schedule, no DMA ring, no
+// junction-major bank transpose, no padding of states or lanes.
+//
+// Work split: one thread block per (restart r, chain q, direction). The
+// block walks the chain's L positions in a loop, keeping the log-space
+// carry and the shifted linear vector u = exp(carry - max) in shared
+// memory. Each step is
+//   cut class (bank index 0):  s = sum(u), the same for every state;
+//   any other step:            s = u . M (forward) or M . u (reverse), with M
+//                              the lane's static class matrix or its
+//                              restart's breakend matrix be_exp[r, j];
+//   result = log(max(s, TINY)) + max, plus the frame in the forward direction.
+// The reverse direction adds the frame before taking the max (the TPU
+// kernel's order), and both directions run through the pad positions
+// after a chain's end (cut steps with zero frames), so the betas carry the
+// same per-chain constant shift as the reference.
+//
+// Forward matvec: threads over columns j, so a warp reads a contiguous row
+// segment of M. Reverse matvec: a warp per row i with a shuffle reduction,
+// again reading rows contiguously.
+//
+// What bounds it on an H100: the breakend matrices. A whole-genome wave
+// (R=8, J<=600, S=355) holds R*J*S*S*4 B ~ 2.4 GB of them; each direction
+// reads every one once, ~4.8 GB per forward-backward, ~1.5 ms at 3.35 TB/s.
+// The fp32 work is ~2*R*Q*L*S^2 ~ 12 G multiply-adds. The static class
+// matrices (at most 5 x 504 KB) stay in L2 but are re-read by every block
+// on every step, so this simple design is L2-bandwidth bound well above
+// both figures. Running all R restarts of a chain in one block as one
+// (R x S).(S x S) product would cut the static re-reads R-fold; that is
+// later work.
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace {
+
+constexpr float TINY = 1e-37f;
+
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Block-wide reductions; red holds 33 floats of shared memory. Every
+// thread of the block must call them. They end with a barrier so red can
+// be reused by the next reduction.
+__device__ float block_max(float v, float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  v = warp_max(v);
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    float x = lane < nwarps ? red[lane] : -INFINITY;
+    x = warp_max(x);
+    if (lane == 0) red[32] = x;
+  }
+  __syncthreads();
+  const float r = red[32];
+  __syncthreads();
+  return r;
+}
+
+__device__ float block_sum(float v, float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  v = warp_sum(v);
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    float x = lane < nwarps ? red[lane] : 0.f;
+    x = warp_sum(x);
+    if (lane == 0) red[32] = x;
+  }
+  __syncthreads();
+  const float r = red[32];
+  __syncthreads();
+  return r;
+}
+
+// frames (R, Q, L, S); static_exp (num_static, S, S); be_exp (R, J, S, S);
+// cbi (Q, Lm1) int32, value < num_static a static class, num_static + j
+// breakend j; alphas, betas (R, Q, L, S). Grid (R*Q, 2), blockDim a
+// multiple of 32.
+__global__ void fb_grouped_kernel(const float* __restrict__ frames,
+                                  const float* __restrict__ static_exp,
+                                  const float* __restrict__ be_exp,
+                                  const int* __restrict__ cbi,
+                                  float* __restrict__ alphas,
+                                  float* __restrict__ betas,
+                                  int Q, int L, int S, int Lm1,
+                                  int num_static, int J) {
+  extern __shared__ float smem[];
+  float* carry = smem;
+  float* u = smem + S;
+  float* red = smem + 2 * S;
+
+  const int lane_id = blockIdx.x;  // r * Q + q
+  const int r = lane_id / Q;
+  const int q = lane_id % Q;
+  const bool reverse = blockIdx.y == 1;
+  const size_t SS = (size_t)S * S;
+  const float* F = frames + (size_t)lane_id * L * S;
+  float* out = (reverse ? betas : alphas) + (size_t)lane_id * L * S;
+  const int* bidx = cbi + (size_t)q * Lm1;
+  const int tid = threadIdx.x, nt = blockDim.x;
+
+  if (!reverse) {
+    for (int i = tid; i < S; i += nt) {
+      const float f = F[i];
+      carry[i] = f;
+      out[i] = f;
+    }
+  } else {
+    for (int i = tid; i < S; i += nt) {
+      carry[i] = 0.f;
+      out[(size_t)(L - 1) * S + i] = 0.f;
+    }
+  }
+
+  for (int step = 1; step < L; ++step) {
+    // forward: pair (t-1, t) produces position t from frame t;
+    // reverse: pair (t-1, t) produces position t-1 from frame t
+    const int t = reverse ? L - step : step;
+    const float* frow = F + (size_t)t * S;
+    float* dst = out + (size_t)(reverse ? t - 1 : t) * S;
+    __syncthreads();
+    if (reverse) {
+      for (int i = tid; i < S; i += nt) carry[i] += frow[i];
+      __syncthreads();
+    }
+    float m = -INFINITY;
+    for (int i = tid; i < S; i += nt) m = fmaxf(m, carry[i]);
+    m = block_max(m, red);
+    for (int i = tid; i < S; i += nt) u[i] = expf(carry[i] - m);
+    __syncthreads();
+
+    const int b = bidx[t - 1];
+    if (b == 0) {
+      float s = 0.f;
+      for (int i = tid; i < S; i += nt) s += u[i];
+      s = block_sum(s, red);
+      const float val = logf(fmaxf(s, TINY)) + m;
+      for (int j = tid; j < S; j += nt) {
+        const float v = reverse ? val : val + frow[j];
+        carry[j] = v;
+        dst[j] = v;
+      }
+      continue;
+    }
+    const float* M = b < num_static
+        ? static_exp + (size_t)b * SS
+        : be_exp + ((size_t)r * J + (size_t)(b - num_static)) * SS;
+    if (!reverse) {
+      for (int j = tid; j < S; j += nt) {
+        float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+        const float* col = M + j;
+        int i = 0;
+        for (; i + 3 < S; i += 4) {
+          a0 = fmaf(u[i], col[(size_t)i * S], a0);
+          a1 = fmaf(u[i + 1], col[(size_t)(i + 1) * S], a1);
+          a2 = fmaf(u[i + 2], col[(size_t)(i + 2) * S], a2);
+          a3 = fmaf(u[i + 3], col[(size_t)(i + 3) * S], a3);
+        }
+        for (; i < S; ++i) a0 = fmaf(u[i], col[(size_t)i * S], a0);
+        const float s = (a0 + a1) + (a2 + a3);
+        const float v = logf(fmaxf(s, TINY)) + m + frow[j];
+        carry[j] = v;
+        dst[j] = v;
+      }
+    } else {
+      const int warp = tid >> 5, lane = tid & 31, nwarps = nt >> 5;
+      for (int i = warp; i < S; i += nwarps) {
+        const float* row = M + (size_t)i * S;
+        float s = 0.f;
+        for (int j = lane; j < S; j += 32) s = fmaf(row[j], u[j], s);
+        s = warp_sum(s);
+        if (lane == 0) {
+          const float v = logf(fmaxf(s, TINY)) + m;
+          carry[i] = v;
+          dst[i] = v;
+        }
+      }
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" int fb_grouped_launch(const float* frames, const float* static_exp,
+                                 const float* be_exp, const int* cbi,
+                                 float* alphas, float* betas,
+                                 int R, int Q, int L, int S, int Lm1,
+                                 int num_static, int J, int threads,
+                                 void* stream) {
+  const size_t smem = (2 * (size_t)S + 33) * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fb_grouped_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 grid(R * Q, 2);
+  fb_grouped_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
+      frames, static_exp, be_exp, cbi, alphas, betas, Q, L, S, Lm1,
+      num_static, J);
+  return (int)cudaGetLastError();
+}
+
+extern "C" const char* fb_grouped_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}

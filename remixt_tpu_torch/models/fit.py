@@ -1,0 +1,279 @@
+"""BreakpointModel: the fit's model object (torch).
+
+Counterpart of ``remixt_tpu/models/fit.py``: host-side segmentation remap
+and likelihood masks, state-space construction, Viterbi decode and
+breakpoint copy-number extraction. The restart grid is fitted by
+:func:`remixt_tpu_torch.models.fit_batched.fit_restarts_batched`; the
+single-restart ``fit()`` loop is not ported yet.
+"""
+
+import numpy as np
+import torch
+
+from remixt_tpu_torch.device import resolve_device, resolve_dtype
+from remixt_tpu_torch.models import engine as eng
+from remixt_tpu_torch.models import states as states_mod
+from remixt_tpu_torch.models.remap import SegmentRemap
+
+
+LIKELIHOOD_PARAM_BOUNDS = {
+    'negbin_r_0': (10., 2000.),
+    'negbin_r_1': (1., 2000.),
+    'betabin_M_0': (10., 2000.),
+    'betabin_M_1': (1., 2000.),
+    'negbin_hdel_mu': (1e-9, 1e-4),
+    'negbin_hdel_r_0': (10., 2000.),
+    'negbin_hdel_r_1': (1., 200.),
+    'betabin_loh_p': (1e-5, 1e-2),
+    'betabin_loh_M_0': (10., 2000.),
+    'betabin_loh_M_1': (1., 200.),
+}
+
+
+class BreakpointModel:
+    """Joint segment + breakpoint copy-number model over one sample.
+
+    Args:
+        x (ndarray): observed (major, minor, total) read counts, (N, 3)
+        l (ndarray): effective segment lengths, (N,)
+        adjacencies (set of tuple): wild-type adjacent segment pairs
+        breakpoints (dict): breakpoint id -> frozenset of (segment, side)
+
+    KwArgs as the JAX ``BreakpointModel`` (max_copy_number,
+    normal_contamination, divergence_weight, min_segment_length,
+    min_proportion_genotyped, max_depth, transition_log_prob,
+    disable_breakpoints, normal_copies, do_h_update, random_seed), plus
+        device: torch device, ``None`` for CUDA (raises without one)
+        dtype: engine dtype, a name or torch dtype (float32 on CUDA)
+    """
+
+    def __init__(self, x, l, adjacencies, breakpoints, **kwargs):
+        x = np.asarray(x)
+        if not np.all(x[:, 1] <= x[:, 0]):
+            raise ValueError('x must be ordered major, minor, total')
+
+        self.N = x.shape[0]
+        if len(breakpoints) > 0:
+            self.breakpoint_ids, self.breakpoints = zip(*breakpoints.items())
+        else:
+            self.breakpoint_ids, self.breakpoints = (), ()
+
+        self.device = resolve_device(kwargs.get('device'))
+        self.dtype = resolve_dtype(self.device,
+                                   kwargs.get('dtype', torch.float32))
+        self.max_copy_number = kwargs.get('max_copy_number', 6)
+        self.max_copy_number_diff = kwargs.get('max_copy_number_diff', 1)
+        self.normal_contamination = kwargs.get('normal_contamination', True)
+        self.divergence_weight = kwargs.get('divergence_weight', 1e6)
+        self.min_segment_length = kwargs.get('min_segment_length', 10000)
+        self.min_proportion_genotyped = kwargs.get(
+            'min_proportion_genotyped', 0.01)
+        self.max_depth = kwargs.get('max_depth')
+        self.transition_log_prob = kwargs.get('transition_log_prob', 10.)
+        self.transition_model = kwargs.get('transition_model', 0)
+        self.disable_breakpoints = kwargs.get('disable_breakpoints', False)
+        self.breakpoint_init = kwargs.get('breakpoint_init', None)
+        self.normal_copies = np.asarray(
+            kwargs.get('normal_copies', np.array([[1, 1]] * self.N)))
+        self.do_h_update = kwargs.get('do_h_update', True)
+        self.random_seed = kwargs.get('random_seed', None)
+
+        if self.max_depth is None:
+            raise ValueError('must specify max depth')
+        if not self.normal_contamination:
+            self.normal_copies = self.normal_copies * 0
+
+        self.remap = SegmentRemap(self.N, adjacencies, self.breakpoints)
+        self.N1 = self.remap.N1
+        self.seg_fwd_remap = self.remap.seg_fwd_remap
+        self.seg_rev_remap = self.remap.seg_rev_remap
+        self.num_breakpoints = self.remap.num_breakpoints
+        self.is_telomere = self.remap.is_telomere
+        self.breakpoint_idx = self.remap.breakpoint_idx
+        self.breakpoint_orient = self.remap.breakpoint_orient
+
+        self.x1, self.l1 = self.remap.expand_data(x, l)
+
+        # likelihood masks: segments too short, or amplified past
+        # max_depth, leave the likelihood; the allele term also needs
+        # enough genotypable reads
+        total_reads = self.x1[:, 2].astype(float)
+        depth = total_reads / (self.l1.astype(float) + 1e-16)
+        genotyped_fraction = (
+            self.x1[:, :2].sum(axis=1).astype(float) / (total_reads + 1e-16))
+        modellable = (
+            (self.l1 >= self.min_segment_length) & (depth <= self.max_depth))
+        self._total_likelihood_mask = modellable
+        self._allele_likelihood_mask = modellable & (
+            genotyped_fraction >= self.min_proportion_genotyped)
+
+        if self.disable_breakpoints:
+            self.num_breakpoints = 0
+            self.breakpoint_idx = np.full_like(self.breakpoint_idx, -1)
+            self.breakpoint_orient = np.zeros_like(self.breakpoint_orient)
+
+        self.prev_elbo = None
+        self.prev_elbo_diff = None
+        self.num_em_iter = 1
+        self.num_update_iter = 1
+
+        self.likelihood_params = [
+            'negbin_r_0',
+            'negbin_r_1',
+            'betabin_M_0',
+            'betabin_M_1',
+        ]
+        if not self.normal_contamination:
+            self.likelihood_params.extend([
+                'negbin_hdel_mu',
+                'negbin_hdel_r_0',
+                'negbin_hdel_r_1',
+                'betabin_loh_p',
+                'betabin_loh_M_0',
+                'betabin_loh_M_1',
+            ])
+        self.likelihood_param_bounds = dict(LIKELIHOOD_PARAM_BOUNDS)
+
+        self.spec = None
+        self.params = None
+        self.state = None
+
+    # -- model assembly ------------------------------------------------------
+
+    def _build_spec(self, num_clones):
+        cn_states_one = states_mod.enumerate_cn_states(
+            num_clones, 2, self.max_copy_number, self.max_copy_number_diff)
+        cn_states = np.tile(cn_states_one[None], (self.N, 1, 1, 1))
+        cn_states[:, :, 0, :] = self.normal_copies[:, None, :]
+        cn_states = cn_states[self.seg_rev_remap]
+
+        brk_states = states_mod.enumerate_brk_states(
+            num_clones, self.max_copy_number, self.max_copy_number_diff)
+
+        return eng.ModelSpec(
+            cn_states=cn_states,
+            brk_states=brk_states,
+            l=self.l1,
+            x=self.x1[:, 2],
+            y=self.x1[:, 0:2],
+            is_telomere=self.is_telomere,
+            breakpoint_idx=self.breakpoint_idx,
+            breakpoint_orient=self.breakpoint_orient,
+            transition_penalty=self.transition_log_prob,
+            normal_contamination=self.normal_contamination,
+            transition_model=self.transition_model,
+            dtype=self.dtype,
+            device=self.device,
+        )
+
+    def _init_p_breakpoint(self):
+        """Optional informative q(brk) init."""
+        if self.breakpoint_init is None or self.num_breakpoints == 0:
+            return None
+        brk_states = self.spec.brk_states.cpu().numpy()
+        p_breakpoint = np.ones((self.num_breakpoints, brk_states.shape[0]))
+        for k, bp in enumerate(self.breakpoints):
+            cn = self.breakpoint_init[bp]
+            match = np.all(brk_states == np.asarray(cn)[None, :], axis=1)
+            p_breakpoint[k, match] = 1000.
+        p_breakpoint /= p_breakpoint.sum(axis=-1, keepdims=True)
+        return p_breakpoint
+
+    # -- outputs -------------------------------------------------------------
+
+    def get_likelihood_param_values(self):
+        return {name: float(getattr(self.params, name))
+                for name in self.likelihood_params}
+
+    def optimal_cn(self):
+        """Viterbi decode + breakpoint copy number of the current restart.
+
+        Returns:
+            cn (N, M, 2) in the ORIGINAL segmentation, brk_cn dict
+        """
+        seq, _ = eng.viterbi_decode(self.spec, self.params, self.state)
+        seq = seq.cpu().numpy()
+
+        class_cn = self.spec.class_cn_np          # (C, S, M, 2)
+        seg_class = self.spec.seg_class_np
+        cn1 = class_cn[seg_class, seq]            # (N1, M, 2)
+
+        brk_states = self.spec.brk_states.cpu().numpy()
+        num_brk_states = brk_states.shape[0]
+        tp = self.transition_log_prob
+
+        brk_cn = dict()
+        if self.num_breakpoints > 0:
+            # each junction n with breakpoint k contributes
+            # -tp * |d_m - orient * brk_states| per clone to that
+            # breakpoint's state score
+            at_brk = np.flatnonzero(self.breakpoint_idx[:self.N1 - 1] >= 0)
+            k_idx = self.breakpoint_idx[at_brk]
+            d = (cn1[at_brk].sum(axis=2) - cn1[at_brk + 1].sum(axis=2))
+            orient = self.breakpoint_orient[at_brk]
+            score = -tp * np.abs(
+                d[:, None, :] - orient[:, None, None] * brk_states[None, :, :]
+            ).sum(axis=2)
+            log_p = np.zeros((self.num_breakpoints, num_brk_states))
+            np.add.at(log_p, k_idx, score)
+            best = brk_states[log_p.argmax(axis=1)]
+            brk_cn = {self.breakpoint_ids[k]: best[k]
+                      for k in range(self.num_breakpoints)}
+
+        cn = cn1[self.seg_fwd_remap]
+        return cn, brk_cn
+
+    @property
+    def h(self):
+        return self.params.h.cpu().numpy()
+
+    @property
+    def p_breakpoint(self):
+        return self.state.p_breakpoint.cpu().numpy()
+
+    @property
+    def p_outlier_total(self):
+        return self.state.p_outlier_total.cpu().numpy()[self.seg_fwd_remap]
+
+    @property
+    def p_outlier_allele(self):
+        return self.state.p_outlier_allele.cpu().numpy()[self.seg_fwd_remap]
+
+    @property
+    def total_likelihood_mask(self):
+        return self._total_likelihood_mask[self.seg_fwd_remap]
+
+    @property
+    def allele_likelihood_mask(self):
+        return self._allele_likelihood_mask[self.seg_fwd_remap]
+
+
+def decode_breakpoints_naive(cn, adjacencies, breakpoints):
+    """Breakpoint copy number from segment copy number alone, as the min
+    residual copy-number flow at the two breakends. Used when integrated
+    breakpoint inference is disabled."""
+    cn = cn.sum(axis=-1)
+
+    breakend_adj = dict()
+    for seg_1, seg_2 in adjacencies:
+        breakend_adj[(seg_1, 1)] = (seg_2, 0)
+        breakend_adj[(seg_2, 0)] = (seg_1, 1)
+
+    brk_cn = dict()
+    for breakpoint_id, breakpoint in breakpoints.items():
+        breakend_cn = dict()
+        for breakend in breakpoint:
+            n, side = breakend
+            cn_self = cn[n, :]
+            if breakend in breakend_adj:
+                n_adj, _ = breakend_adj[breakend]
+                cn_adj = cn[n_adj, :]
+            else:
+                cn_adj = 0
+            breakend_cn[(n, side)] = np.maximum(cn_self - cn_adj, 0)
+
+        ((n_1, side_1), (n_2, side_2)) = breakpoint
+        brk_cn[breakpoint_id] = np.minimum(
+            breakend_cn[(n_1, side_1)], breakend_cn[(n_2, side_2)])
+
+    return brk_cn

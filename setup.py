@@ -31,8 +31,10 @@ setup(
     version='0.1.0',
     description=('TPU-native joint inference of clone-specific segment and '
                  'breakpoint copy number from tumour WGS data'),
-    packages=find_packages(include=['remixt_tpu', 'remixt_tpu.*']),
-    package_data={'remixt_tpu.io': ['_native/libbamallele.so']},
+    packages=find_packages(include=['remixt_tpu', 'remixt_tpu.*',
+                                    'remixt_tpu_torch', 'remixt_tpu_torch.*']),
+    package_data={'remixt_tpu.io': ['_native/libbamallele.so'],
+                  'remixt_tpu_torch': ['csrc/*.cu']},
     cmdclass={'build_py': BuildNative},
     entry_points={
         'console_scripts': [

@@ -1,0 +1,73 @@
+"""The port stands alone: importing every module of ``remixt_tpu_torch``
+loads neither JAX nor the JAX package, no source of the port or of
+``chip_smoke.py`` imports them, and the entry points refuse to fall back to
+the CPU when no CUDA device was asked for and none exists."""
+
+import os
+import pkgutil
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import remixt_tpu_torch
+
+# the tensors are tiny: one intra-op thread is faster, and the suite runs
+# several test workers on the machine's cores
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PACKAGE = os.path.join(REPO, 'remixt_tpu_torch')
+
+
+def port_modules():
+    return sorted(
+        m.name for m in pkgutil.walk_packages(
+            remixt_tpu_torch.__path__, prefix='remixt_tpu_torch.'))
+
+
+def test_importing_every_module_loads_no_jax():
+    modules = port_modules()
+    assert 'remixt_tpu_torch.models.engine' in modules
+    assert 'remixt_tpu_torch.ops.fb_grouped' in modules
+    code = (
+        'import importlib, sys\n'
+        'for name in {!r}:\n'
+        '    importlib.import_module(name)\n'
+        'bad = sorted(m for m in sys.modules\n'
+        '             if m.split(".")[0] in ("jax", "jaxlib")\n'
+        '             or m == "remixt_tpu" or m.startswith("remixt_tpu."))\n'
+        'assert not bad, bad\n').format(modules)
+    subprocess.run([sys.executable, '-c', code], check=True, cwd=REPO)
+
+
+def source_files():
+    files = [os.path.join(REPO, 'chip_smoke.py')]
+    for root, _, names in os.walk(PACKAGE):
+        files += [os.path.join(root, n) for n in names
+                  if n.endswith(('.py', '.cu'))]
+    return files
+
+
+@pytest.mark.parametrize('path', source_files(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_source_imports_no_jax(path):
+    with open(path) as f:
+        text = f.read()
+    assert not re.search(r'^\s*(?:import|from)\s+jax', text, re.M), path
+    assert not re.search(r'\bremixt_tpu\.', text), path
+
+
+def test_fit_many_without_device_raises_without_cuda(monkeypatch):
+    from remixt_tpu_torch.analysis import pipeline
+    from remixt_tpu_torch.analysis.experiment import Experiment
+
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    experiment = Experiment([[3, 1, 10]] * 4, [1e5] * 4,
+                            {(0, 1), (1, 2), (2, 3)}, {})
+    init = {i: dict(mode_idx=0, h_normal=0.1, h_tumour=0.1, mix_frac=0.5,
+                    divergence_weight=1e-7, max_depth=1e9) for i in range(2)}
+    with pytest.raises(RuntimeError, match='CUDA'):
+        pipeline.fit_many(experiment, init, {})
