@@ -7,23 +7,36 @@ Phases, in order; any failure exits non-zero:
 
 1. Environment: the card's name and power limit, the torch and CUDA
    versions; builds the CUDA kernels from ``remixt_tpu_torch/csrc`` into
-   ``build/remixt_tpu_torch/`` and prints the build time.
-2. Kernel vs plain: the whole-genome problem (N=6000 segments at 500 kb,
-   M=3 clones, max copy number 12 → S=355 states, 300 events, 23 chains)
-   with one wave of R=8 restarts. One forward-backward through the CUDA
-   kernel and one through its plain PyTorch version, both on the card in
-   float32, compared on entries within 60 nats of their row maximum at
-   atol 2e-4 / rtol 1e-5 and on log_norm at rtol 1e-5. Times both.
-3. The slice at full width: ``analysis.pipeline.fit_many`` on that
+   ``build/remixt_tpu_torch/`` (one nvcc per source, all at once) and
+   prints the build time.
+2. Kernel vs plain, restart-batched: the whole-genome problem (N=6000
+   segments at 500 kb, M=3 clones, max copy number 12 → S=355 states, 300
+   events, 23 chains) with one wave of R=8 restarts. One forward-backward
+   through the ``fb_grouped`` kernel and one through its plain PyTorch
+   version, both on the card in float32, compared on entries within 60
+   nats of their row maximum at atol 2e-4 / rtol 1e-5 and on log_norm at
+   rtol 1e-5. Times both.
+2b. Kernel vs plain, one restart: the same problem with restart 0's state
+   through the ``fb_chains`` kernel (each cluster size built) and its plain
+   version, at the same tolerances; times both, and ``fb_grouped`` on the
+   same inputs at R=1.
+3. The batched path at full width: ``analysis.pipeline.fit_many`` on that
    experiment with the 8 restarts, 2 EM iterations × 2 VI sweeps (the one
    cut: the defaults are 5 × 5). Checks finite ELBOs, the decoded copy
    number's shape, and that every chain forward-backward of the run went
-   through the kernel.
+   through the ``fb_grouped`` kernel.
 4. float32 on the card vs float64 on the CPU at a small size (N=60, max
-   copy number 4, R=4, 5 sweeps): posterior max-abs-diff ≤ 1e-3.
-5. Where the time goes: the full-width fit once more (1 EM × 2 VI) under
+   copy number 4, 5 sweeps), restart-batched (R=4) and one restart:
+   posterior max-abs-diff ≤ 1e-3 each.
+5. Where the time goes: the batched fit once more (1 EM × 2 VI) under
    ``torch.profiler``: the device's busy share, device time per fit stage,
    and the kernels with the most device time.
+6. The single-restart path at full width: the sequential ``fit_many``
+   (``batch_restarts: false``) over the first 2 restarts of phase 3's grid,
+   2 EM × 2 VI. Checks finite ELBOs, the copy number's shape, and that every
+   chain forward-backward went through the ``fb_chains`` kernel; reports its
+   stage times and, per restart, the share of segments whose decoded copy
+   number equals phase 3's.
 
 The line before the last holds the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -43,10 +56,17 @@ PEAK_FP32_FLOP_PER_S = 67e12
 N_FULL, EVENTS_FULL, CHAINS_FULL, CN_MAX_FULL = 6000, 300, 23, 12
 WAVE = 8
 NUM_EM_ITER, NUM_UPDATE_ITER = 2, 2
+SEQUENTIAL_RESTARTS = 2
+KERNELS = ('fb_grouped', 'fb_chains')
+CLUSTERS = (4, 8)
+
+
+START = time.time()
 
 
 def log(msg):
-    print(msg, flush=True)
+    """Print ``msg`` with the seconds since the script started."""
+    print('[{:6.1f} s] {}'.format(time.time() - START, msg), flush=True)
 
 
 def simulate(N, cn_max, num_events, num_chains, seed):
@@ -103,6 +123,7 @@ def cuda_ms(fn, reps):
 
 
 def phase_environment():
+    from concurrent.futures import ThreadPoolExecutor
     import torch
     from remixt_tpu_torch.ops import _build
     smi = subprocess.run(
@@ -113,12 +134,69 @@ def phase_environment():
         torch.__version__, torch.version.cuda, sys.version.split()[0]))
     log('card: ' + smi)
     t0 = time.time()
-    _build.load('fb_grouped')
-    log('phase 1: built fb_grouped in {:.2f} s'.format(time.time() - t0))
-    for line in _build.build_logs.get('fb_grouped', '').splitlines():
-        if 'registers' in line or 'spill' in line or 'smem' in line:
-            log('  ptxas: ' + line.strip())
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        list(pool.map(_build.build, KERNELS))
+    for name in KERNELS:
+        _build.load(name)
+    log('phase 1: built {} in {:.2f} s'.format(', '.join(KERNELS),
+                                              time.time() - t0))
+    for name in KERNELS:
+        for line in _build.build_logs.get(name, '').splitlines():
+            if 'registers' in line or 'spill' in line or 'smem' in line:
+                log('  ptxas {}: {}'.format(name, line.strip()))
     return smi
+
+
+def check_messages(pairs):
+    """Kernel against plain messages: entries within 60 nats of the row
+    maximum at atol 2e-4 / rtol 1e-5. Returns the max abs difference."""
+    import torch
+    max_err = 0.0
+    for got, ref in pairs:
+        if not (torch.isfinite(got).all() and torch.isfinite(ref).all()):
+            raise AssertionError('non-finite forward-backward messages')
+        significant = ref > ref.amax(dim=-1, keepdim=True) - 60.0
+        diff = (got - ref).abs()[significant]
+        tol = 2e-4 + 1e-5 * ref.abs()[significant]
+        max_err = max(max_err, float(diff.max()))
+        if not bool((diff <= tol).all()):
+            raise AssertionError(
+                'kernel disagrees with its plain version: max abs '
+                'diff {:.3e}'.format(float(diff.max())))
+    return max_err
+
+
+def check_log_norm(spec, kernel, plain):
+    """log_norm of the kernel's and the plain messages (R, Q, L, S), rtol
+    1e-5."""
+    from remixt_tpu_torch.ops import fb_grouped
+    ln = [fb_grouped._scatter_and_norm(a, b, spec.chain_seg_map,
+                                       spec.chain_last, spec.N)[2]
+          for a, b in (kernel, plain)]
+    np.testing.assert_allclose(ln[0].cpu().numpy(), ln[1].cpu().numpy(),
+                               rtol=1e-5)
+
+
+def bound(spec, frames, static_exp, be_exp, cbi, outputs):
+    """The least time of one forward-backward over these inputs: each
+    array moved once over the HBM rate, or the fp32 work over the fp32
+    rate, whichever is larger. Returns (ms, 'bytes' or 'operations',
+    bytes_ms, flops_ms, bytes, flops)."""
+    R = frames.numel() // (spec.Q * spec.L * spec.S)
+    S, L = spec.S, spec.L
+    nbytes = 4 * (frames.numel() + static_exp.numel() + be_exp.numel()
+                  + cbi.numel() + sum(o.numel() for o in outputs))
+    steps = spec.chain_bank_idx[:, :L - 1].cpu().numpy()
+    matvec_steps = int((steps != 0).sum())
+    cut_steps = int((steps == 0).sum())
+    # per direction and restart: a 2·S² flop matvec per non-cut step, an
+    # S-add sum per cut step, and ~4 flops per state per step around them
+    flops = 2 * R * (matvec_steps * 2 * S * S + cut_steps * S
+                     + (matvec_steps + cut_steps) * 4 * S)
+    bytes_ms = 1e3 * nbytes / PEAK_BYTES_PER_S
+    flops_ms = 1e3 * flops / PEAK_FP32_FLOP_PER_S
+    by = 'bytes' if bytes_ms >= flops_ms else 'operations'
+    return max(bytes_ms, flops_ms), by, bytes_ms, flops_ms, nbytes, flops
 
 
 def phase_kernel(data):
@@ -149,26 +227,8 @@ def phase_kernel(data):
         a_p, b_p = fb_grouped.fb_grouped_reference(frames, static_exp,
                                                    be_exp_b, cbi)
         torch.cuda.synchronize()
-
-        max_err = 0.0
-        for got, ref in ((a_k, a_p), (b_k, b_p)):
-            if not (torch.isfinite(got).all() and torch.isfinite(ref).all()):
-                raise AssertionError('non-finite forward-backward messages')
-            significant = ref > ref.amax(dim=-1, keepdim=True) - 60.0
-            diff = (got - ref).abs()[significant]
-            tol = 2e-4 + 1e-5 * ref.abs()[significant]
-            max_err = max(max_err, float(diff.max()))
-            if not bool((diff <= tol).all()):
-                raise AssertionError(
-                    'kernel disagrees with its plain version: max abs '
-                    'diff {:.3e}'.format(float(diff.max())))
-        N = spec.N
-        _, _, ln_k = fb_grouped._scatter_and_norm(
-            a_k, b_k, spec.chain_seg_map, spec.chain_last, N)
-        _, _, ln_p = fb_grouped._scatter_and_norm(
-            a_p, b_p, spec.chain_seg_map, spec.chain_last, N)
-        np.testing.assert_allclose(ln_k.cpu().numpy(), ln_p.cpu().numpy(),
-                                   rtol=1e-5)
+        max_err = check_messages(((a_k, a_p), (b_k, b_p)))
+        check_log_norm(spec, (a_k, b_k), (a_p, b_p))
         del a_p, b_p
 
         ms = cuda_ms(lambda: fb_grouped.fb_grouped_cuda(
@@ -176,66 +236,83 @@ def phase_kernel(data):
         plain_ms = cuda_ms(lambda: fb_grouped.fb_grouped_reference(
             frames, static_exp, be_exp_b, cbi), reps=5)
 
-    R, Q, L, S = frames.shape
-    J = be_exp_b.shape[1]
-    nbytes = 4 * (frames.numel() + static_exp.numel() + be_exp_b.numel()
-                  + cbi.numel() + a_k.numel() + b_k.numel())
-    steps = spec.chain_bank_idx[:, :L - 1].cpu().numpy()
-    matvec_steps = int((steps != 0).sum())
-    cut_steps = int((steps == 0).sum())
-    # per direction and restart: a 2·S² flop matvec per non-cut step, an
-    # S-add sum per cut step, and ~4 flops per state per step around them
-    flops = 2 * R * (matvec_steps * 2 * S * S + cut_steps * S
-                     + (matvec_steps + cut_steps) * 4 * S)
-    bytes_ms = 1e3 * nbytes / PEAK_BYTES_PER_S
-    flops_ms = 1e3 * flops / PEAK_FP32_FLOP_PER_S
-    bound_ms = max(bytes_ms, flops_ms)
-    bound_by = 'bytes' if bytes_ms >= flops_ms else 'operations'
+    bound_ms, bound_by, _, _, nbytes, flops = bound(
+        spec, frames, static_exp, be_exp_b, cbi, (a_k, b_k))
     log('phase 2: kernel {:.3f} ms, plain {:.3f} ms, bound {:.3f} ms ({}; '
         '{:.3f} GB, {:.3f} GFLOP), max abs diff {:.3e}, J={}'.format(
             ms, plain_ms, bound_ms, bound_by, nbytes / 1e9, flops / 1e9,
-            max_err, J))
+            max_err, be_exp_b.shape[1]))
     return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by)
+
+
+def phase_kernel_chains(data):
+    """The single-restart kernel against its plain version at the main
+    path's shapes: restart 0 of phase 2's wave, each cluster size."""
+    import torch
+    from remixt_tpu_torch.models import engine as eng
+    from remixt_tpu_torch.ops import fb_chains, fb_grouped
+
+    model = make_model(data, CN_MAX_FULL, 'cuda', torch.float32)
+    h_inits, weights = restart_grid(data['h'], WAVE)
+    spec, params_b, state_b = initial_batch(model, h_inits[:1], weights[:1])
+    with torch.no_grad():
+        ll_tot, ll_alle = eng.emission_tensors(spec, params_b)
+        frame = eng._mix_framelogprob(spec, params_b, state_b, ll_tot,
+                                      ll_alle)[0]
+        del ll_tot, ll_alle
+        be_exp = eng.breakend_tmats_exp(spec, state_b.p_breakpoint)[0]
+        frames = fb_grouped.gather_frames(
+            frame[None], spec.chain_seg_map)[0].contiguous()
+        static_exp = torch.exp(spec.static_bank).contiguous()
+        cbi = spec.chain_bank_idx.contiguous()
+
+        a_p, b_p = fb_chains.fb_chains_reference(frames, static_exp, be_exp,
+                                                 cbi)
+        torch.cuda.synchronize()
+        cluster_ms, max_err = {}, 0.0
+        for cluster in CLUSTERS:
+            a_k, b_k = fb_chains.fb_chains_cuda(frames, static_exp, be_exp,
+                                                cbi, cluster=cluster)
+            torch.cuda.synchronize()
+            max_err = max(max_err, check_messages(((a_k, a_p), (b_k, b_p))))
+            check_log_norm(spec, (a_k[None], b_k[None]),
+                           (a_p[None], b_p[None]))
+            cluster_ms[cluster] = cuda_ms(
+                lambda: fb_chains.fb_chains_cuda(
+                    frames, static_exp, be_exp, cbi, cluster=cluster),
+                reps=7)
+        plain_ms = cuda_ms(lambda: fb_chains.fb_chains_reference(
+            frames, static_exp, be_exp, cbi), reps=5)
+        grouped_ms = cuda_ms(lambda: fb_grouped.fb_grouped_cuda(
+            frames[None], static_exp, be_exp[None], cbi), reps=7)
+
+    bound_ms, bound_by, bytes_ms, flops_ms, nbytes, flops = bound(
+        spec, frames, static_exp, be_exp, cbi, (a_k, b_k))
+    log('phase 2b: one restart, Q={} L={} S={} J={}; max abs diff {:.3e}'
+        .format(spec.Q, spec.L, spec.S, be_exp.shape[0], max_err))
+    log('phase 2b: fb_chains ms by cluster size {}; plain {:.3f} ms; '
+        'fb_grouped at R=1 {:.3f} ms'.format(
+            json.dumps({c: round(t, 4) for c, t in cluster_ms.items()}),
+            plain_ms, grouped_ms))
+    log('phase 2b: bound {:.4f} ms ({}): bytes {:.4f} GB = {:.4f} ms, '
+        'fp32 {:.3f} GFLOP = {:.4f} ms'.format(
+            bound_ms, bound_by, nbytes / 1e9, bytes_ms, flops / 1e9,
+            flops_ms))
+    return dict(max_abs_err=max_err, ms=cluster_ms[fb_chains.CLUSTER],
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 
 def phase_fit(data):
     """fit_many at full width, with per-stage wall times."""
     import torch
     from remixt_tpu_torch.analysis import pipeline
-    from remixt_tpu_torch.analysis.experiment import Experiment
     from remixt_tpu_torch.models import em, engine as eng
-    from remixt_tpu_torch.ops import fb_grouped
+    from remixt_tpu_torch.ops import fb_chains, fb_grouped
 
-    h_inits, weights = restart_grid(data['h'], WAVE)
-    init_params = {
-        i: dict(mode_idx=0, h_normal=h[0], h_tumour=h[1] + h[2],
-                mix_frac=h[1] / (h[1] + h[2]), divergence_weight=w,
-                max_depth=1e9)
-        for i, (h, w) in enumerate(zip(h_inits, weights))}
-    config = dict(max_copy_number=CN_MAX_FULL, num_em_iter=NUM_EM_ITER,
-                  num_update_iter=NUM_UPDATE_ITER,
-                  likelihood_min_segment_length=1.0,
-                  likelihood_min_proportion_genotyped=0.0,
-                  restart_chunk_size=WAVE, random_seed=1234)
-    experiment = Experiment(data['x'], data['l'], data['adjacencies'],
-                            data['breakpoints'])
-
+    init_params, config, experiment = fit_inputs(data, NUM_EM_ITER)
     stages = {}
-
-    def timed(module, name, label):
-        fn = getattr(module, name)
-
-        def wrapper(*args, **kwargs):
-            torch.cuda.synchronize()
-            t0 = time.time()
-            out = fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            stages.setdefault(label, []).append(time.time() - t0)
-            return out
-        setattr(module, name, wrapper)
-        return fn
-
+    timed = stage_timer(stages)
     originals = [
         (eng, 'variational_sweeps_restarts',
          timed(eng, 'variational_sweeps_restarts', 'sweeps')),
@@ -249,7 +326,7 @@ def phase_fit(data):
          timed(em, 'update_params_fused_batched', 'params_update_elbo')),
     ]
     torch.cuda.reset_peak_memory_stats()
-    fb_grouped.LAUNCHES = 0
+    fb_grouped.LAUNCHES = fb_chains.LAUNCHES = 0
     t0 = time.time()
     try:
         results = pipeline.fit_many(experiment, init_params, config)
@@ -262,17 +339,12 @@ def phase_fit(data):
 
     waves = -(-len(init_params) // WAVE)
     expected = waves * NUM_EM_ITER * NUM_UPDATE_ITER
-    if launches != expected:
-        raise AssertionError('fb_grouped launched {} times in the fit, '
-                             'expected {}'.format(launches, expected))
-    elbos = np.array([r['stats']['elbo'] for r in results.values()])
-    if not np.all(np.isfinite(elbos)):
-        raise AssertionError('non-finite ELBO: {}'.format(elbos))
-    for r in results.values():
-        if r['cn'].shape != (N_FULL, 3, 2):
-            raise AssertionError('cn shape {}'.format(r['cn'].shape))
-        if not np.all(np.isfinite(r['h'])):
-            raise AssertionError('non-finite h')
+    if launches != expected or fb_chains.LAUNCHES:
+        raise AssertionError(
+            'fb_grouped launched {} times in the batched fit, expected {}; '
+            'fb_chains {} times, expected 0'.format(
+                launches, expected, fb_chains.LAUNCHES))
+    elbos = check_results(results)
 
     per_em = [sum(stages[k][i] for k in ('sweeps', 'h_update',
                                          'sample_weights',
@@ -297,6 +369,128 @@ def phase_fit(data):
                           np.array2string(elbos, precision=2)))
     log('phase 3: best restart h {}, exact tumour cn on {:.3f} of segments'
         .format(np.array2string(best['h'], precision=5), exact.mean()))
+    return launches, results
+
+
+def check_results(results):
+    """Finite ELBOs and h, copy number of the full width; returns the
+    ELBOs."""
+    elbos = np.array([r['stats']['elbo'] for r in results.values()])
+    if not np.all(np.isfinite(elbos)):
+        raise AssertionError('non-finite ELBO: {}'.format(elbos))
+    for r in results.values():
+        if r['cn'].shape != (N_FULL, 3, 2):
+            raise AssertionError('cn shape {}'.format(r['cn'].shape))
+        if not np.all(np.isfinite(r['h'])):
+            raise AssertionError('non-finite h')
+    return elbos
+
+
+def fit_inputs(data, num_em_iter, num_restarts=WAVE):
+    """Phase 3's restart grid, config and experiment."""
+    from remixt_tpu_torch.analysis.experiment import Experiment
+    h_inits, weights = restart_grid(data['h'], WAVE)
+    init_params = {
+        i: dict(mode_idx=0, h_normal=h[0], h_tumour=h[1] + h[2],
+                mix_frac=h[1] / (h[1] + h[2]), divergence_weight=w,
+                max_depth=1e9)
+        for i, (h, w) in enumerate(zip(h_inits[:num_restarts],
+                                       weights[:num_restarts]))}
+    config = dict(max_copy_number=CN_MAX_FULL, num_em_iter=num_em_iter,
+                  num_update_iter=NUM_UPDATE_ITER,
+                  likelihood_min_segment_length=1.0,
+                  likelihood_min_proportion_genotyped=0.0,
+                  restart_chunk_size=WAVE, random_seed=1234)
+    experiment = Experiment(data['x'], data['l'], data['adjacencies'],
+                            data['breakpoints'])
+    return init_params, config, experiment
+
+
+def stage_timer(stages):
+    """``timed(module, name, label)`` swaps ``module.name`` for a wrapper
+    that appends its synchronized wall time to ``stages[label]``, and
+    returns the original."""
+    import torch
+
+    def timed(module, name, label):
+        fn = getattr(module, name)
+
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            stages.setdefault(label, []).append(time.time() - t0)
+            return out
+        setattr(module, name, wrapper)
+        return fn
+    return timed
+
+
+def phase_sequential_fit(data, batched_results):
+    """The single-restart path at full width: the sequential fit_many over
+    the first restarts of phase 3's grid, with per-stage wall times."""
+    import torch
+    from remixt_tpu_torch.analysis import pipeline
+    from remixt_tpu_torch.models import em, engine as eng
+    from remixt_tpu_torch.ops import fb_chains, fb_grouped
+
+    init_params, config, experiment = fit_inputs(
+        data, NUM_EM_ITER, num_restarts=SEQUENTIAL_RESTARTS)
+    config['batch_restarts'] = False
+    stages = {}
+    timed = stage_timer(stages)
+    originals = [
+        (eng, 'variational_sweeps',
+         timed(eng, 'variational_sweeps', 'sweeps')),
+        (eng, 'calculate_elbo', timed(eng, 'calculate_elbo', 'initial_elbo')),
+        (em, 'update_h_fused', timed(em, 'update_h_fused', 'h_update')),
+        (em, 'param_sample_weights_all',
+         timed(em, 'param_sample_weights_all', 'sample_weights')),
+        (em, 'update_params_fused',
+         timed(em, 'update_params_fused', 'params_update_elbo')),
+    ]
+    torch.cuda.reset_peak_memory_stats()
+    fb_grouped.LAUNCHES = fb_chains.LAUNCHES = 0
+    t0 = time.time()
+    try:
+        results = pipeline.fit_many(experiment, init_params, config)
+    finally:
+        for module, name, fn in originals:
+            setattr(module, name, fn)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = fb_chains.LAUNCHES
+
+    expected = SEQUENTIAL_RESTARTS * NUM_EM_ITER * NUM_UPDATE_ITER
+    if launches != expected or fb_grouped.LAUNCHES:
+        raise AssertionError(
+            'fb_chains launched {} times in the sequential fit, expected {}; '
+            'fb_grouped {} times, expected 0'.format(
+                launches, expected, fb_grouped.LAUNCHES))
+    elbos = check_results(results)
+
+    n_em = SEQUENTIAL_RESTARTS * NUM_EM_ITER
+    per_em = [sum(stages[k][i] for k in ('sweeps', 'h_update',
+                                         'sample_weights',
+                                         'params_update_elbo'))
+              for i in range(n_em)]
+    per_sweep = [s / NUM_UPDATE_ITER for s in stages['sweeps']]
+    same_cn = {i: float(np.all(r['cn'] == batched_results[i]['cn'],
+                               axis=(1, 2)).mean())
+               for i, r in results.items()}
+    log('phase 6: sequential fit_many, {} restarts one at a time, {} EM x {} '
+        'VI'.format(SEQUENTIAL_RESTARTS, NUM_EM_ITER, NUM_UPDATE_ITER))
+    log('phase 6: wall {:.3f} s; per EM iteration {} s; per sweep {} s'
+        .format(wall, ['{:.3f}'.format(x) for x in per_em],
+                ['{:.4f}'.format(x) for x in per_sweep]))
+    log('phase 6: stages ' + json.dumps(
+        {k: [round(x, 4) for x in v] for k, v in stages.items()}))
+    log('phase 6: max_memory_allocated {:.3f} GB, fb_chains launches {}, '
+        'ELBOs {}'.format(torch.cuda.max_memory_allocated() / 1e9, launches,
+                          np.array2string(elbos, precision=2)))
+    log('phase 6: share of segments whose cn equals the batched fit of '
+        'phase 3, per restart: ' + json.dumps(same_cn))
     return launches
 
 
@@ -308,22 +502,9 @@ def phase_profile(data):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
     from remixt_tpu_torch.analysis import pipeline
-    from remixt_tpu_torch.analysis.experiment import Experiment
     from remixt_tpu_torch.models import em, engine as eng
 
-    h_inits, weights = restart_grid(data['h'], WAVE)
-    init_params = {
-        i: dict(mode_idx=0, h_normal=h[0], h_tumour=h[1] + h[2],
-                mix_frac=h[1] / (h[1] + h[2]), divergence_weight=w,
-                max_depth=1e9)
-        for i, (h, w) in enumerate(zip(h_inits, weights))}
-    config = dict(max_copy_number=CN_MAX_FULL, num_em_iter=1,
-                  num_update_iter=NUM_UPDATE_ITER,
-                  likelihood_min_segment_length=1.0,
-                  likelihood_min_proportion_genotyped=0.0,
-                  restart_chunk_size=WAVE, random_seed=1234)
-    experiment = Experiment(data['x'], data['l'], data['adjacencies'],
-                            data['breakpoints'])
+    init_params, config, experiment = fit_inputs(data, 1)
 
     def labelled(module, name, label):
         fn = getattr(module, name)
@@ -409,14 +590,20 @@ def phase_small_f32_vs_f64():
     for device, dtype in (('cuda', torch.float32), ('cpu', torch.float64)):
         model = make_model(data, 4, device, dtype)
         spec, params_b, state_b = initial_batch(model, h_inits, weights)
-        state_b = eng.variational_sweeps_restarts(spec, params_b, state_b, 5)
-        marg[device] = state_b.posterior_marginals.double().cpu().numpy()
-    diff = float(np.abs(marg['cuda'] - marg['cpu']).max())
-    log('phase 4: f32 card vs f64 CPU, N=60 S={} R=4, 5 sweeps: posterior '
-        'max abs diff {:.3e}'.format(marg['cpu'].shape[-1], diff))
-    if not diff <= 1e-3:
-        raise AssertionError('f32 posteriors differ from f64 by {}'.format(
-            diff))
+        swept_b = eng.variational_sweeps_restarts(spec, params_b, state_b, 5)
+        swept = eng.variational_sweeps(spec, eng.take(params_b, 0),
+                                       eng.take(state_b, 0), 5)
+        marg[device] = [s.posterior_marginals.double().cpu().numpy()
+                        for s in (swept_b, swept)]
+    for label, card, cpu in zip(('R=4', 'one restart'), marg['cuda'],
+                                marg['cpu']):
+        diff = float(np.abs(card - cpu).max())
+        log('phase 4: f32 card vs f64 CPU, N=60 S={} {}, 5 sweeps: '
+            'posterior max abs diff {:.3e}'.format(cpu.shape[-1], label,
+                                                   diff))
+        if not diff <= 1e-3:
+            raise AssertionError('f32 posteriors ({}) differ from f64 by {}'
+                                 .format(label, diff))
 
 
 def main():
@@ -429,22 +616,26 @@ def main():
 
     smi = phase_environment()
     data = simulate(N_FULL, CN_MAX_FULL, EVENTS_FULL, CHAINS_FULL, seed=0)
-    kernel = phase_kernel(data)
-    launches = phase_fit(data)
+    grouped = phase_kernel(data)
+    chains = phase_kernel_chains(data)
+    grouped['launches'], batched_results = phase_fit(data)
     phase_small_f32_vs_f64()
     phase_profile(data)
+    chains['launches'] = phase_sequential_fit(data, batched_results)
 
-    log(smi)
-    table = {'kernels': [dict(
-        name='fb_grouped', route='cuda',
-        source='remixt_tpu_torch/csrc/fb_grouped.cu',
-        replaces='remixt_tpu/ops/fb_pallas.py:744',
-        launches=launches, max_abs_err=kernel['max_abs_err'],
-        ms=kernel['ms'], plain_ms=kernel['plain_ms'],
-        bound_ms=kernel['bound_ms'], bound_by=kernel['bound_by'],
-        library_ms=None)]}
-    log(json.dumps(table))
-    log(json.dumps({'ok': True, 'device': {
+    print(smi)
+    table = {'kernels': [
+        dict(name=name, route='cuda',
+             source='remixt_tpu_torch/csrc/{}.cu'.format(name),
+             replaces=replaces, launches=k['launches'],
+             max_abs_err=k['max_abs_err'], ms=k['ms'],
+             plain_ms=k['plain_ms'], bound_ms=k['bound_ms'],
+             bound_by=k['bound_by'], library_ms=None)
+        for name, replaces, k in (
+            ('fb_grouped', 'remixt_tpu/ops/fb_pallas.py:744', grouped),
+            ('fb_chains', 'remixt_tpu/ops/fb_pallas.py:152', chains))]}
+    print(json.dumps(table))
+    print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))
     return 0

@@ -1,12 +1,16 @@
-"""Fit pipeline: the restart-grid fit and per-restart results (torch).
+"""Fit pipeline: the restart-grid fit, the one-restart fit job and
+per-restart results (torch).
 
-Counterpart of ``fit_many`` and its helpers in
+Counterpart of ``fit_task``, ``fit``, ``fit_many`` and their helpers in
 ``remixt_tpu/analysis/pipeline.py``. The grid runs through the batched
-restart fit (``models/fit_batched.py``) in padded waves. The sequential
-one-restart-at-a-time fit (``batch_restarts: false``, a grid of one
-restart, ``optimal_initialization``) is the single-restart path of the next
-slice of the port and raises here.
+restart fit (``models/fit_batched.py``) in padded waves, or one restart
+at a time through ``BreakpointModel.fit`` on one shared model
+(``batch_restarts: false``, a grid of one restart,
+``optimal_initialization``).
 """
+
+import os
+import pickle
 
 import numpy as np
 
@@ -15,6 +19,31 @@ from remixt_tpu_torch.device import resolve_device, resolve_dtype
 from remixt_tpu_torch.models.fit import (
     BreakpointModel, decode_breakpoints_naive)
 from remixt_tpu_torch.models.fit_batched import fit_restarts_batched
+
+
+def fit_task(results_filename, experiment_filename, init_params, config,
+             device=None):
+    """One-restart fit job: fits the pickled
+    :class:`~remixt_tpu_torch.analysis.experiment.Experiment` and pickles
+    its results. A snapshot is written next to the results after every EM
+    iteration, a killed job resumes from it, and it is removed once the
+    results are on disk."""
+    with open(experiment_filename, 'rb') as f:
+        experiment = pickle.load(f)
+    snapshot_filename = results_filename + '.ckpt'
+    fit_results = fit(experiment, init_params, config,
+                      snapshot_filename=snapshot_filename, device=device)
+    with open(results_filename, 'wb') as f:
+        pickle.dump(fit_results, f)
+    if os.path.exists(snapshot_filename):
+        os.remove(snapshot_filename)
+
+
+def fit(experiment, init_params, config, snapshot_filename=None, device=None):
+    """Fit one restart."""
+    model = build_model(experiment, init_params, config, device)
+    return fit_with_model(model, experiment, init_params, config,
+                          snapshot_filename=snapshot_filename)
 
 
 def fit_many(experiment, init_params_dict, config, device=None):
@@ -32,12 +61,21 @@ def fit_many(experiment, init_params_dict, config, device=None):
     device = resolve_device(device)
     batched = remixt_tpu_torch.config.get_param(config, 'batch_restarts') \
         and not config.get('optimal_initialization', False)
-    if not batched or len(init_params_dict) <= 1:
-        raise NotImplementedError(
-            'the sequential single-restart fit (batch_restarts: false, '
-            'optimal_initialization, or a grid of one restart) comes with '
-            'the single-restart slice of the port')
-    return _fit_many_batched(experiment, init_params_dict, config, device)
+    if batched and len(init_params_dict) > 1:
+        return _fit_many_batched(experiment, init_params_dict, config, device)
+
+    results = {}
+    model = None
+    for init_id, init_params in init_params_dict.items():
+        if model is None:
+            model = build_model(experiment, init_params, config, device)
+        else:
+            model.reset_restart(
+                max_depth=init_params['max_depth'],
+                divergence_weight=init_params['divergence_weight'])
+        results[init_id] = fit_with_model(model, experiment, init_params,
+                                          config)
+    return results
 
 
 def _restart_h_init(init_params):
@@ -109,6 +147,37 @@ def build_model(experiment, init_params, config, device=None):
     model.num_em_iter = get('num_em_iter')
     model.num_update_iter = get('num_update_iter')
     return model
+
+
+def _truth_breakpoint_init(experiment, h_init):
+    """Convergence-testing hook: breakpoint posteriors seeded from the
+    simulated truth, clone-swapped to match the h initialization. Needs an
+    experiment from the genome simulation, which carries the truth."""
+    if (getattr(experiment, 'genome_mixture', None) is None
+            or getattr(experiment, 'h', None) is None):
+        raise ValueError(
+            'optimal_initialization needs an experiment from the genome '
+            'simulation (with genome_mixture and h), which the port does '
+            'not build yet')
+    collection = experiment.genome_mixture.genome_collection
+    truth = collection.collapsed_breakpoint_copy_number()
+    for bp in experiment.genome_mixture.detected_breakpoints.values():
+        truth.setdefault(bp, np.zeros((experiment.genome_mixture.M,)))
+    if (experiment.h[1] < experiment.h[2]) != (h_init[1] < h_init[2]):
+        truth = {bp: np.concatenate([cn[:1], cn[1:][::-1]])
+                 for bp, cn in truth.items()}
+    return truth
+
+
+def fit_with_model(model, experiment, init_params, config,
+                   snapshot_filename=None):
+    """Run one restart on a (possibly shared) model and extract results."""
+    h_init = _restart_h_init(init_params)
+    model.breakpoint_init = (
+        _truth_breakpoint_init(experiment, h_init)
+        if config.get('optimal_initialization', False) else None)
+    model.fit(h_init, snapshot_filename=snapshot_filename)
+    return _extract_results(model, experiment, init_params, config)
 
 
 def _extract_results(model, experiment, init_params, config):

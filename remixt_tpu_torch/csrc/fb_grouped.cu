@@ -25,8 +25,13 @@
 // again reading rows contiguously.
 //
 // What bounds it on an H100: the breakend matrices. A whole-genome wave
-// (R=8, J<=600, S=355) holds R*J*S*S*4 B ~ 2.4 GB of them; each direction
-// reads every one once, ~4.8 GB per forward-backward, ~1.5 ms at 3.35 TB/s.
+// (R=8, J<=600, S=355) holds R*J*S*S*4 B ~ 2.4 GB of them. The bound reads
+// the bank once, with the frames, static bank, schedule and outputs: 2.63
+// GB, 0.785 ms at 3.35 TB/s. Once, because the function needs each matrix
+// only once; running both directions off one read is a matter of design,
+// not of the function. This design reads the bank once per direction (4.8
+// GB, a floor of ~1.5 ms of its own) and, at ~10.4 ms, reaches 7.5 % of the
+// bound (chip_smoke.py, H100 80GB HBM3, 700 W).
 // The fp32 work is ~2*R*Q*L*S^2 ~ 12 G multiply-adds. The static class
 // matrices (at most 5 x 504 KB) stay in L2 but are re-read by every block
 // on every step, so this simple design is L2-bandwidth bound well above

@@ -1,9 +1,11 @@
 """Carrying model state across from the JAX package.
 
-The JAX package's ``Params`` and ``VState`` arrive as dicts of numpy arrays
-— ``jax.tree.map(np.asarray, x)._asdict()``, or the ``'params'`` /
-``'state'`` entries of a JAX fit snapshot — and become the port's
-NamedTuples of tensors. A leading restart axis is kept where present.
+The JAX package's ``Params`` and ``VState`` arrive as the NamedTuples
+themselves or as dicts of numpy arrays — ``jax.tree.map(np.asarray,
+x)._asdict()``, or the ``'params'`` / ``'state'`` entries of a fit snapshot
+of either package — and become the port's NamedTuples of tensors. One
+restart's trees and restart batches both convert; a leading restart axis is
+kept where present.
 """
 
 import numpy as np
@@ -33,14 +35,20 @@ def _tensor(value, device, dtype):
     return torch.as_tensor(a, device=device)
 
 
+def _fields(d):
+    return d._asdict() if hasattr(d, '_asdict') else d
+
+
 def params_from_numpy(d, device, dtype):
-    """JAX Params as a dict of numpy arrays → port Params."""
+    """JAX Params, or a dict of its numpy arrays → port Params."""
+    d = _fields(d)
     return eng.Params(**{name: _tensor(d[name], device, dtype)
                          for name in eng.Params._fields})
 
 
 def state_from_numpy(d, device, dtype):
-    """JAX VState as a dict of numpy arrays → port VState."""
+    """JAX VState, or a dict of its numpy arrays → port VState."""
+    d = _fields(d)
     return eng.VState(**{name: _tensor(d[name], device, dtype)
                          for name in eng.VState._fields})
 

@@ -12,12 +12,24 @@ Counterpart of the batched updates of ``remixt_tpu/models/em.py``:
 
 Subsamples are drawn on the host from numpy ``RandomState`` streams with
 the same draws as the JAX package, from weights computed on the device.
+
+The single-restart updates the fit of one restart calls
+(``update_h_fused``, ``update_params_fused``, ``param_sample_weights_all``)
+are calls of the batched ones with a batch of one and a list of one RNG,
+so both fits draw the same subsamples. ``update_h`` (scipy's L-BFGS-B),
+``update_param`` (one parameter's grid zoom) and ``param_sample_weights``
+(one parameter's weights) are the JAX package's stepwise alternatives.
 """
 
+import logging
+
 import numpy as np
+import scipy.optimize
 import torch
 
 from remixt_tpu_torch.models import engine as eng
+
+logger = logging.getLogger('remixt_tpu_torch.em')
 
 
 # grid-search refinement schedule: (points per level, zoom levels)
@@ -73,7 +85,7 @@ def _h_update(spec, params_b, state_b, idx):
 
     with torch.no_grad():
         both = torch.stack([h, params_b.h], dim=1)                # (R, 2, M)
-        full = eng.expected_log_likelihood(
+        full = eng.expected_log_likelihood_restarts(
             spec, params_b._replace(h=both), state_b, extra=1)
         accept = full[:, 0] >= full[:, 1]
         h_out = torch.where(accept[:, None], h, params_b.h)
@@ -218,3 +230,101 @@ def param_sample_weights_all_batched(spec, state_b, names):
     w_b = _param_weights_all(spec, state_b, names).cpu().numpy().astype(
         np.float64)
     return [_normalize_weight_rows(w) for w in w_b]
+
+
+# ===========================================================================
+# one restart
+# ===========================================================================
+
+def update_h_fused(spec, params, state, rng):
+    """EM h update of one restart; returns (params, accept)."""
+    params_b, accept = update_h_fused_batched(
+        spec, eng.one(params), eng.one(state), [rng])
+    return eng.take(params_b, 0), accept[0]
+
+
+def update_params_fused(spec, params, state, names, bounds, rng,
+                        weights_list=None):
+    """EM update of one restart's scalar likelihood parameters and the ELBO
+    of the result; returns (params, accepts (P,), elbo)."""
+    params_b, accepts, elbo = update_params_fused_batched(
+        spec, eng.one(params), eng.one(state), names, bounds, [rng],
+        weights_lists=None if weights_list is None else [weights_list])
+    return eng.take(params_b, 0), accepts[0], elbo[0]
+
+
+def param_sample_weights_all(spec, state, names):
+    """Sampling weights of every parameter for one restart (a list, None
+    where a parameter's weights sum to zero)."""
+    return param_sample_weights_all_batched(spec, eng.one(state), names)[0]
+
+
+def param_sample_weights(spec, state, name):
+    """One parameter's posterior-responsibility sampling weights, (N,)
+    float64 on the host, or None where they sum to zero."""
+    return param_sample_weights_all(spec, state, (name,))[0]
+
+
+def update_h(spec, params, state, rng, h_bounds=(1e-8, 10.0)):
+    """EM h update of one restart by scipy's L-BFGS-B on the subsample
+    objective, its gradient from ``torch.autograd``, then the full-data
+    accept/reject. Returns (params, accepted)."""
+    idx = torch.as_tensor(create_sample_indices(rng, spec.N),
+                          device=spec.device)[None]
+    params_b, state_b = eng.one(params), eng.one(state)
+
+    def objective(h):
+        h_leaf = torch.as_tensor(h, dtype=spec.dtype, device=spec.device)
+        h_leaf = h_leaf[None].requires_grad_(True)
+        with torch.enable_grad():
+            val = eng.expected_log_likelihood_indexed(
+                spec, params_b._replace(h=h_leaf), state_b, idx)[0]
+            (g,) = torch.autograd.grad(val, h_leaf)
+        return -float(val.detach()), -g[0].cpu().numpy().astype(np.float64)
+
+    h_before = params.h.cpu().numpy().astype(np.float64)
+    with torch.no_grad():
+        ell_before = float(eng.expected_log_likelihood(spec, params, state))
+    result = scipy.optimize.minimize(
+        objective, h_before, method='L-BFGS-B', jac=True,
+        bounds=[h_bounds] * len(h_before))
+    if not result.success:
+        # the full-data accept/reject below guards against a bad step
+        logger.info('h optimization inexact termination: %s', result.message)
+
+    candidate = params._replace(h=torch.as_tensor(
+        result.x, dtype=spec.dtype, device=spec.device))
+    with torch.no_grad():
+        ell_after = float(eng.expected_log_likelihood(spec, candidate, state))
+    if ell_after < ell_before:
+        return params, False
+    return candidate, True
+
+
+@torch.no_grad()
+def update_param(spec, params, state, name, bounds, rng, weights=None):
+    """EM update of one scalar likelihood parameter of one restart: a
+    3-level, 20-point grid zoom on its subsample, then the full-data
+    accept/reject. Returns (params, accepted)."""
+    idx = torch.as_tensor(create_sample_indices(rng, spec.N, weights),
+                          device=spec.device)[None]
+    params_b, state_b = eng.one(params), eng.one(state)
+    lo, hi = float(bounds[0]), float(bounds[1])
+    for _ in range(GRID_LEVELS):
+        values = np.linspace(lo, hi, GRID_POINTS)
+        objs = eng.expected_log_likelihood_indexed(
+            spec, params_b._replace(**{name: torch.as_tensor(
+                values[None], dtype=spec.dtype, device=spec.device)}),
+            state_b, idx, extra=1)[0]
+        best = float(values[int(torch.argmax(objs))])
+        step = (hi - lo) / (GRID_POINTS - 1)
+        lo = max(float(bounds[0]), best - step)
+        hi = min(float(bounds[1]), best + step)
+
+    candidate = params._replace(**{name: torch.tensor(
+        best, dtype=spec.dtype, device=spec.device)})
+    ell_before = float(eng.expected_log_likelihood(spec, params, state))
+    ell_after = float(eng.expected_log_likelihood(spec, candidate, state))
+    if ell_after < ell_before:
+        return params, False
+    return candidate, True

@@ -15,6 +15,11 @@ factored state space and transition banks, written for PyTorch.
   and unpadded, shared by the chain update (the forward-backward kernel of
   ``ops/fb_grouped.py``) and the breakpoint update — the structure of the
   JAX engine's kernel path.
+* The single-restart API of the JAX engine (``update_p_cn``,
+  ``variational_sweep(s)``, ``calculate_elbo``, ...) takes one restart's
+  NamedTuples, without the restart axis, and runs as R=1 views of the
+  batched functions; only its chain update has a kernel of its own
+  (``ops/fb_chains.py``).
 
 Emission special cases (hdel / LOH / masks / zero-count segments) are
 encoded as boolean planes with double-``where`` guards, so
@@ -27,7 +32,7 @@ import numpy as np
 import torch
 
 from remixt_tpu_torch.models import states as states_mod
-from remixt_tpu_torch.ops import fb_grouped, fb_scan
+from remixt_tpu_torch.ops import fb_chains, fb_grouped, fb_scan
 from remixt_tpu_torch.ops.special import (
     exp_normalize, lgamma_shift, plogp)
 
@@ -79,6 +84,11 @@ def stack(items):
 def take(tree, r):
     """Restart ``r`` of a batched NamedTuple (no restart axis)."""
     return type(tree)(*[x[r] for x in tree])
+
+
+def one(tree):
+    """One restart's NamedTuple as a batch of one (a view)."""
+    return type(tree)(*[x[None] for x in tree])
 
 
 class ModelSpec:
@@ -706,7 +716,7 @@ def _xi_breakend_dots_restarts(spec, state_b):
 # variational updates (reference update order)
 # ===========================================================================
 
-def update_p_allele_swap(spec, state_b, ll_alle):
+def update_p_allele_swap_restarts(spec, state_b, ll_alle):
     R, N = state_b.p_allele_swap.shape[:2]
     t4 = torch.einsum('rkns,rns->rnk', ll_alle,
                       state_b.posterior_marginals).reshape(R, N, 2, 2)
@@ -714,24 +724,29 @@ def update_p_allele_swap(spec, state_b, ll_alle):
     return state_b._replace(p_allele_swap=exp_normalize(log_p, dim=-1))
 
 
+def _with_chain(state, frame, alphas, betas, log_norm):
+    """State after a chain update, batched or not: the posteriors, the
+    messages and the potentials the chain ran under."""
+    return state._replace(
+        posterior_marginals=exp_normalize(alphas + betas, dim=-1),
+        alphas=alphas,
+        betas=betas,
+        framelogprob=frame,
+        hmm_log_norm_const=log_norm,
+        chain_scale=torch.ones_like(log_norm),
+        p_breakpoint_used=state.p_breakpoint,
+    )
+
+
 def update_p_cn_restarts(spec, params_b, state_b, ll_tot, ll_alle,
                          be_exp_b):
     """Chain update: mix the frames, run the restart-batched chain
     forward-backward under the sweep's exp-space breakend bank."""
-    R = ll_tot.shape[0]
     frame_b = _mix_framelogprob(spec, params_b, state_b, ll_tot, ll_alle)
     alphas, betas, log_norm = fb_grouped.forward_backward_chains_grouped(
         frame_b, spec.static_bank, be_exp_b, spec.chain_bank_idx,
         spec.chain_seg_map, spec.chain_last)
-    return state_b._replace(
-        posterior_marginals=exp_normalize(alphas + betas, dim=-1),
-        alphas=alphas,
-        betas=betas,
-        framelogprob=frame_b,
-        hmm_log_norm_const=log_norm,
-        chain_scale=frame_b.new_ones(R),
-        p_breakpoint_used=state_b.p_breakpoint,
-    )
+    return _with_chain(state_b, frame_b, alphas, betas, log_norm)
 
 
 def update_p_breakpoint_restarts(spec, state_b, be_exp_b):
@@ -749,7 +764,7 @@ def update_p_breakpoint_restarts(spec, state_b, be_exp_b):
     return state_b._replace(p_breakpoint=exp_normalize(log_p, dim=-1))
 
 
-def update_p_outlier_total(spec, state_b, ll_tot):
+def update_p_outlier_total_restarts(spec, state_b, ll_tot):
     log_p = torch.einsum('rns,runs->rnu', state_b.posterior_marginals, ll_tot)
     p = spec.prior_outlier_total
     prior = torch.log(torch.tensor([1.0 - p, p], dtype=log_p.dtype,
@@ -758,7 +773,7 @@ def update_p_outlier_total(spec, state_b, ll_tot):
         p_outlier_total=exp_normalize(log_p + prior, dim=-1))
 
 
-def update_p_outlier_allele(spec, state_b, ll_alle):
+def update_p_outlier_allele_restarts(spec, state_b, ll_alle):
     R, N = state_b.p_allele_swap.shape[:2]
     t4 = torch.einsum('rkns,rns->rnk', ll_alle,
                       state_b.posterior_marginals).reshape(R, N, 2, 2)
@@ -771,7 +786,7 @@ def update_p_outlier_allele(spec, state_b, ll_alle):
 
 
 def _sweep_restarts_with_emissions(spec, params_b, state_b, ll_tot, ll_alle):
-    state_b = update_p_allele_swap(spec, state_b, ll_alle)
+    state_b = update_p_allele_swap_restarts(spec, state_b, ll_alle)
     # one exp-space breakend bank per sweep, shared by the chain update and
     # the breakpoint update (the chain ran under exactly these potentials)
     be_exp_b = breakend_tmats_exp(spec, state_b.p_breakpoint)
@@ -779,8 +794,8 @@ def _sweep_restarts_with_emissions(spec, params_b, state_b, ll_tot, ll_alle):
                                    be_exp_b)
     state_b = update_p_breakpoint_restarts(spec, state_b, be_exp_b)
     del be_exp_b
-    state_b = update_p_outlier_total(spec, state_b, ll_tot)
-    return update_p_outlier_allele(spec, state_b, ll_alle)
+    state_b = update_p_outlier_total_restarts(spec, state_b, ll_tot)
+    return update_p_outlier_allele_restarts(spec, state_b, ll_alle)
 
 
 @torch.no_grad()
@@ -791,6 +806,82 @@ def variational_sweeps_restarts(spec, params_b, state_b, num_sweeps):
         state_b = _sweep_restarts_with_emissions(
             spec, params_b, state_b, ll_tot, ll_alle)
     return state_b
+
+
+# -- one restart: the JAX engine's single-restart API, as R=1 views ----------
+#
+# ``params`` and ``state`` carry no restart axis; ``ll_tot`` (2, N, S) and
+# ``ll_alle`` (4, N, S) are one restart's emission planes.
+
+def update_p_allele_swap(spec, params, state, ll_alle):
+    return take(update_p_allele_swap_restarts(spec, one(state), ll_alle[None]),
+                0)
+
+
+def update_p_cn(spec, params, state, ll_tot, ll_alle, be_exp=None):
+    """Chain update of one restart through the single-restart chain
+    kernel. ``be_exp`` (J, S, S) optionally supplies the exp-space breakend
+    bank of ``state.p_breakpoint`` (the sweep builds it once and shares it
+    with the breakpoint update)."""
+    if be_exp is None:
+        be_exp = breakend_tmats_exp(spec, state.p_breakpoint[None])[0]
+    frame = _mix_framelogprob(spec, one(params), one(state), ll_tot[None],
+                              ll_alle[None])[0]
+    alphas, betas, log_norm = fb_chains.forward_backward_chains(
+        frame, spec.static_bank, be_exp, spec.chain_bank_idx,
+        spec.chain_seg_map, spec.chain_last)
+    return _with_chain(state, frame, alphas, betas, log_norm)
+
+
+def update_p_breakpoint(spec, params, state, exp_tm_used=None):
+    """q(brk) update of one restart. Without ``exp_tm_used`` it builds
+    the bank of ``state.p_breakpoint_used``, the ones bank before the first
+    chain update (``chain_scale`` 0)."""
+    if spec.K == 0:
+        return state
+    if exp_tm_used is None:
+        exp_tm_used = breakend_tmats_exp(spec, state.p_breakpoint_used[None])[0]
+        exp_tm_used = torch.where(state.chain_scale > 0, exp_tm_used,
+                                  torch.ones_like(exp_tm_used))
+    return take(update_p_breakpoint_restarts(spec, one(state),
+                                             exp_tm_used[None]), 0)
+
+
+def update_p_outlier_total(spec, params, state, ll_tot):
+    return take(update_p_outlier_total_restarts(spec, one(state),
+                                                ll_tot[None]), 0)
+
+
+def update_p_outlier_allele(spec, params, state, ll_alle):
+    return take(update_p_outlier_allele_restarts(spec, one(state),
+                                                 ll_alle[None]), 0)
+
+
+def _sweep_with_emissions(spec, params, state, ll_tot, ll_alle):
+    state = update_p_allele_swap(spec, params, state, ll_alle)
+    be_exp = breakend_tmats_exp(spec, state.p_breakpoint[None])[0]
+    state = update_p_cn(spec, params, state, ll_tot, ll_alle, be_exp=be_exp)
+    state = update_p_breakpoint(spec, params, state, exp_tm_used=be_exp)
+    del be_exp
+    state = update_p_outlier_total(spec, params, state, ll_tot)
+    return update_p_outlier_allele(spec, params, state, ll_alle)
+
+
+@torch.no_grad()
+def variational_sweep(spec, params, state):
+    """One sweep of one restart in the reference's update order: allele
+    swap, chain, breakpoints, total outliers, allele outliers."""
+    return variational_sweeps(spec, params, state, 1)
+
+
+@torch.no_grad()
+def variational_sweeps(spec, params, state, num_sweeps):
+    """``num_sweeps`` VI sweeps of one restart, emissions computed once."""
+    ll_tot, ll_alle = emission_tensors(spec, one(params))
+    for _ in range(num_sweeps):
+        state = _sweep_with_emissions(spec, params, state, ll_tot[0],
+                                      ll_alle[0])
+    return state
 
 
 # ===========================================================================
@@ -891,7 +982,7 @@ def _with_candidate_axes(x, extra):
     return x.reshape(x.shape[:1] + (1,) * extra + x.shape[1:])
 
 
-def expected_log_likelihood(spec, params, state_b, extra=0):
+def expected_log_likelihood_restarts(spec, params, state_b, extra=0):
     """Likelihood-only expected log joint over all segments, (R, *C) for
     parameters with ``extra`` candidate axes. Differentiable in params."""
     rows = _rows(spec, params, extra=extra)
@@ -916,6 +1007,41 @@ def expected_log_likelihood_indexed(spec, params, state_b, idx, extra=0):
         spec, params, rows, g(state_b.posterior_marginals),
         g(state_b.p_outlier_total), g(state_b.p_outlier_allele),
         g(state_b.p_allele_swap), extra)
+
+
+# -- one restart ---------------------------------------------------------
+
+def calculate_elbo_from_halves(spec, params, state, ll_total_half,
+                               ll_allele_half):
+    """ELBO of one restart given its two emission-likelihood
+    contractions (scalars)."""
+    return calculate_elbo_from_halves_restarts(
+        spec, one(params), one(state), ll_total_half[None],
+        ll_allele_half[None])[0]
+
+
+@torch.no_grad()
+def calculate_elbo(spec, params, state):
+    """ELBO of one restart (a scalar)."""
+    return calculate_elbo_restarts(spec, one(params), one(state))[0]
+
+
+def expected_log_likelihood(spec, params, state, sample=None):
+    """Likelihood-only expected log joint of one restart over all
+    segments, or over those a 0/1 ``sample`` indicator (N,) selects.
+    Differentiable in params.
+
+    The JAX engine weights every segment by the indicator; this sums over
+    the selected segments only: the same terms in another order."""
+    if sample is None:
+        return expected_log_likelihood_restarts(spec, one(params),
+                                                one(state))[0]
+    sample = torch.as_tensor(sample, device=spec.device)
+    if not bool(((sample == 0) | (sample == 1)).all()):
+        raise ValueError('sample must be a 0/1 indicator')
+    idx = torch.nonzero(sample).reshape(1, -1)
+    return expected_log_likelihood_indexed(spec, one(params), one(state),
+                                           idx)[0]
 
 
 # ===========================================================================

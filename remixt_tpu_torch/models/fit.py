@@ -1,19 +1,27 @@
 """BreakpointModel: the fit's model object (torch).
 
 Counterpart of ``remixt_tpu/models/fit.py``: host-side segmentation remap
-and likelihood masks, state-space construction, Viterbi decode and
-breakpoint copy-number extraction. The restart grid is fitted by
-:func:`remixt_tpu_torch.models.fit_batched.fit_restarts_batched`; the
-single-restart ``fit()`` loop is not ported yet.
+and likelihood masks, state-space construction, the EM × VI fit loop of
+one restart with its snapshots, Viterbi decode and breakpoint copy-number
+extraction. The restart grid is fitted by
+:func:`remixt_tpu_torch.models.fit_batched.fit_restarts_batched`.
 """
+
+import logging
+import os
+import pickle
 
 import numpy as np
 import torch
 
 from remixt_tpu_torch.device import resolve_device, resolve_dtype
+from remixt_tpu_torch.models import convert
+from remixt_tpu_torch.models import em as em_mod
 from remixt_tpu_torch.models import engine as eng
 from remixt_tpu_torch.models import states as states_mod
 from remixt_tpu_torch.models.remap import SegmentRemap
+
+logger = logging.getLogger('remixt_tpu_torch.fit')
 
 
 LIKELIHOOD_PARAM_BOUNDS = {
@@ -112,8 +120,10 @@ class BreakpointModel:
             self.breakpoint_idx = np.full_like(self.breakpoint_idx, -1)
             self.breakpoint_orient = np.zeros_like(self.breakpoint_orient)
 
+        self.check_elbo = False
         self.prev_elbo = None
         self.prev_elbo_diff = None
+        self._em_iter = 0
         self.num_em_iter = 1
         self.num_update_iter = 1
 
@@ -179,6 +189,242 @@ class BreakpointModel:
         p_breakpoint /= p_breakpoint.sum(axis=-1, keepdims=True)
         return p_breakpoint
 
+    # -- fitting -------------------------------------------------------------
+
+    def reset_restart(self, max_depth=None, divergence_weight=None):
+        """Re-point this model at a new restart's configuration, keeping its
+        state space: masks and the divergence weight are Params fields."""
+        if divergence_weight is not None:
+            self.divergence_weight = divergence_weight
+        if max_depth is not None:
+            # the masks are rebuilt in the JAX package's order, which differs
+            # slightly from the constructor's
+            self.max_depth = max_depth
+            self._total_likelihood_mask = np.ones(self.N1, dtype=bool)
+            self._allele_likelihood_mask = np.ones(self.N1, dtype=bool)
+            self._total_likelihood_mask &= (self.l1 >= self.min_segment_length)
+            self._allele_likelihood_mask &= (self.l1 >= self.min_segment_length)
+            p = self.x1[:, :2].sum(axis=1).astype(float) / (
+                self.x1[:, 2].astype(float) + 1e-16)
+            self._allele_likelihood_mask &= (p >= self.min_proportion_genotyped)
+            depth = self.x1[:, 2].astype(float) / (
+                self.l1.astype(float) + 1e-16)
+            self._total_likelihood_mask &= (depth <= self.max_depth)
+            self._allele_likelihood_mask &= (depth <= self.max_depth)
+        self.prev_elbo = None
+        self.prev_elbo_diff = None
+
+    def _ensure_spec(self, num_clones):
+        if self.spec is None or getattr(self, '_spec_num_clones',
+                                        None) != num_clones:
+            self.spec = self._build_spec(num_clones)
+            self._spec_num_clones = num_clones
+
+    def save_snapshot(self, filename):
+        """Write a resumable snapshot: params and variational state as
+        numpy dicts, the host RNG state and the fit loop's progress.
+        Atomic (tmp + rename), so a kill mid-write leaves no truncated
+        file."""
+        def as_numpy(tree):
+            return {k: v.cpu().numpy() for k, v in tree._asdict().items()}
+
+        payload = {
+            'params': as_numpy(self.params),
+            'state': as_numpy(self.state),
+            'rng_state': self._rng.get_state(),
+            'em_iter': self._em_iter,
+            'prev_elbo': (None if self.prev_elbo is None
+                          else float(self.prev_elbo)),
+            'prev_elbo_diff': (None if self.prev_elbo_diff is None
+                               else float(self.prev_elbo_diff)),
+            'num_clones': self._spec_num_clones,
+        }
+        tmp = filename + '.tmp'
+        with open(tmp, 'wb') as f:
+            pickle.dump(payload, f)
+        os.replace(tmp, filename)
+
+    def load_snapshot(self, filename):
+        """Restore a snapshot written by save_snapshot; the spec is rebuilt
+        from the problem."""
+        with open(filename, 'rb') as f:
+            payload = pickle.load(f)
+        self._ensure_spec(payload['num_clones'])
+        self.params = convert.params_from_numpy(payload['params'],
+                                                self.device, self.dtype)
+        self.state = convert.state_from_numpy(payload['state'], self.device,
+                                              self.dtype)
+        self._rng = np.random.RandomState()
+        self._rng.set_state(payload['rng_state'])
+        self._em_iter = payload['em_iter']
+        self.prev_elbo = payload['prev_elbo']
+        self.prev_elbo_diff = payload['prev_elbo_diff']
+
+    def fit(self, h_init, snapshot_filename=None):
+        """EM × VI fit loop of one restart.
+
+        With ``snapshot_filename``, a snapshot is written after every EM
+        iteration and, if the file exists, the fit resumes from it, with the
+        same result as an uninterrupted run (the host RNG state rides the
+        snapshot).
+        """
+        h_init = np.asarray(h_init, dtype=float)
+        if snapshot_filename is not None and os.path.exists(snapshot_filename):
+            self.load_snapshot(snapshot_filename)
+            logger.info('resumed from snapshot at EM iteration %d',
+                        self._em_iter)
+        else:
+            self._ensure_spec(h_init.shape[0])
+            self.params = self.spec.init_params(
+                h_init, self.divergence_weight,
+                total_mask=self._total_likelihood_mask.astype(float),
+                allele_mask=self._allele_likelihood_mask.astype(float))
+            self.state = self.spec.init_state(self._init_p_breakpoint())
+            self._rng = np.random.RandomState(self.random_seed)
+            self._em_iter = 0
+
+        if self.prev_elbo is None:
+            self.prev_elbo = float(eng.calculate_elbo(
+                self.spec, self.params, self.state))
+
+        # the ELBO stays a device scalar inside the loop: one host pull at
+        # the end, and per-iteration diagnostics only when logged
+        verbose = logger.isEnabledFor(logging.INFO)
+        while self._em_iter < self.num_em_iter:
+            if self.check_elbo:
+                for _ in range(self.num_update_iter):
+                    self.variational_update()
+            else:
+                self.state = eng.variational_sweeps(
+                    self.spec, self.params, self.state, self.num_update_iter)
+
+            if self.do_h_update:
+                self.em_update_h()
+
+            elbo = self.em_update_params()
+            if elbo is None:
+                elbo = eng.calculate_elbo(self.spec, self.params, self.state)
+
+            self.prev_elbo_diff = elbo - self.prev_elbo
+            self.prev_elbo = elbo
+            self._em_iter += 1
+
+            if verbose:
+                logger.info('completed iteration %d', self._em_iter - 1)
+                logger.info('    elbo: %.10f', float(self.prev_elbo))
+                logger.info('    elbo diff: %.10f', float(self.prev_elbo_diff))
+                logger.info('    h = %s', self.h)
+                for name, value in self.get_likelihood_param_values().items():
+                    logger.info('    %s = %s', name, value)
+
+            if snapshot_filename is not None:
+                self.save_snapshot(snapshot_filename)
+
+        self.prev_elbo = float(self.prev_elbo)
+        self.prev_elbo_diff = (None if self.prev_elbo_diff is None
+                               else float(self.prev_elbo_diff))
+
+    def _elbo_guard(self, name, fn, threshold=-1e-6):
+        """Run one update; under ``check_elbo``, raise if it lowered the
+        ELBO by more than ``threshold``."""
+        if not self.check_elbo:
+            fn()
+            return
+        before = float(eng.calculate_elbo(self.spec, self.params, self.state))
+        fn()
+        after = float(eng.calculate_elbo(self.spec, self.params, self.state))
+        logger.info('    %s elbo diff: %.10f', name, after - before)
+        if after - before < threshold:
+            raise RuntimeError('elbo error for step {}!'.format(name))
+
+    def variational_update(self):
+        """One sweep of all variational updates in the reference's order;
+        stepwise and guarded under ``check_elbo``."""
+        if not self.check_elbo:
+            self.state = eng.variational_sweep(self.spec, self.params,
+                                               self.state)
+            return
+        for name, fn in (('update_p_allele_swap', self._step_swap),
+                         ('p_cn', self._step_cn),
+                         ('p_breakpoint', self._step_breakpoint),
+                         ('p_outlier_total', self._step_outlier_total),
+                         ('p_outlier_allele', self._step_outlier_allele)):
+            self._elbo_guard(name, fn)
+
+    @torch.no_grad()
+    def _emission(self):
+        ll_tot, ll_alle = eng.emission_tensors(self.spec, eng.one(self.params))
+        return ll_tot[0], ll_alle[0]
+
+    @torch.no_grad()
+    def _step_swap(self):
+        _, ll_alle = self._emission()
+        self.state = eng.update_p_allele_swap(self.spec, self.params,
+                                              self.state, ll_alle)
+
+    @torch.no_grad()
+    def _step_cn(self):
+        ll_tot, ll_alle = self._emission()
+        self.state = eng.update_p_cn(self.spec, self.params, self.state,
+                                     ll_tot, ll_alle)
+
+    @torch.no_grad()
+    def _step_breakpoint(self):
+        self.state = eng.update_p_breakpoint(self.spec, self.params,
+                                             self.state)
+
+    @torch.no_grad()
+    def _step_outlier_total(self):
+        ll_tot, _ = self._emission()
+        self.state = eng.update_p_outlier_total(self.spec, self.params,
+                                                self.state, ll_tot)
+
+    @torch.no_grad()
+    def _step_outlier_allele(self):
+        _, ll_alle = self._emission()
+        self.state = eng.update_p_outlier_allele(self.spec, self.params,
+                                                 self.state, ll_alle)
+
+    def em_update_h(self):
+        """The fused h update, also under ``check_elbo`` (the L-BFGS-B
+        ``em.update_h`` is an alternative API, not a fit path)."""
+        def step():
+            self.params, accepted = em_mod.update_h_fused(
+                self.spec, self.params, self.state, self._rng)
+            if logger.isEnabledFor(logging.INFO) and not bool(accepted):
+                logger.info('    h update rejected')
+        self._elbo_guard('h', step)
+
+    def em_update_params(self):
+        """Update the scalar likelihood parameters. Returns the ELBO after
+        the fused update as a device scalar, None after the stepwise one
+        (``check_elbo``)."""
+        if self.check_elbo:
+            for name in self.likelihood_params:
+                def step(name=name):
+                    weights = em_mod.param_sample_weights(
+                        self.spec, self.state, name)
+                    self.params, accepted = em_mod.update_param(
+                        self.spec, self.params, self.state, name,
+                        self.likelihood_param_bounds[name], self._rng,
+                        weights)
+                    if not accepted:
+                        logger.info('    %s update rejected', name)
+                self._elbo_guard(name, step)
+            return None
+
+        weights_list = em_mod.param_sample_weights_all(
+            self.spec, self.state, self.likelihood_params)
+        self.params, accepts, elbo = em_mod.update_params_fused(
+            self.spec, self.params, self.state, self.likelihood_params,
+            self.likelihood_param_bounds, self._rng, weights_list)
+        if logger.isEnabledFor(logging.INFO):
+            for name, accepted in zip(self.likelihood_params,
+                                      accepts.cpu().numpy()):
+                if not accepted:
+                    logger.info('    %s update rejected', name)
+        return elbo
+
     # -- outputs -------------------------------------------------------------
 
     def get_likelihood_param_values(self):
@@ -222,6 +468,9 @@ class BreakpointModel:
 
         cn = cn1[self.seg_fwd_remap]
         return cn, brk_cn
+
+    def breakpoint_prob(self):
+        return dict(zip(self.breakpoints, self.p_breakpoint))
 
     @property
     def h(self):

@@ -32,9 +32,7 @@ def fit_restarts_batched(model, h_inits, divergence_weights, chunk_size=8):
     """
     num_restarts = len(h_inits)
     M = len(h_inits[0])
-    if model.spec is None or getattr(model, '_spec_num_clones', None) != M:
-        model.spec = model._build_spec(M)
-        model._spec_num_clones = M
+    model._ensure_spec(M)
     spec = model.spec
 
     results = []

@@ -32,6 +32,7 @@ def test_importing_every_module_loads_no_jax():
     modules = port_modules()
     assert 'remixt_tpu_torch.models.engine' in modules
     assert 'remixt_tpu_torch.ops.fb_grouped' in modules
+    assert 'remixt_tpu_torch.ops.fb_chains' in modules
     code = (
         'import importlib, sys\n'
         'for name in {!r}:\n'
@@ -71,3 +72,18 @@ def test_fit_many_without_device_raises_without_cuda(monkeypatch):
                     divergence_weight=1e-7, max_depth=1e9) for i in range(2)}
     with pytest.raises(RuntimeError, match='CUDA'):
         pipeline.fit_many(experiment, init, {})
+
+
+def test_single_restart_fit_without_device_raises_without_cuda(monkeypatch):
+    from remixt_tpu_torch.analysis import pipeline
+    from remixt_tpu_torch.analysis.experiment import Experiment
+
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    experiment = Experiment([[3, 1, 10]] * 4, [1e5] * 4,
+                            {(0, 1), (1, 2), (2, 3)}, {})
+    init = dict(mode_idx=0, h_normal=0.1, h_tumour=0.1, mix_frac=0.5,
+                divergence_weight=1e-7, max_depth=1e9)
+    with pytest.raises(RuntimeError, match='CUDA'):
+        pipeline.fit(experiment, init, {})
+    with pytest.raises(RuntimeError, match='CUDA'):
+        pipeline.fit_many(experiment, {0: init}, {})
