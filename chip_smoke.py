@@ -20,13 +20,20 @@ Phases, in order; any failure exits non-zero:
    through the ``fb_chains`` kernel (each cluster size built) and its plain
    version, at the same tolerances; times both, and ``fb_grouped`` on the
    same inputs at R=1.
+2c. The scaled-linear kernel, restart-batched: phase 2's inputs through
+   ``fb_grouped_scaled`` and its plain version, at phase 2's tolerances;
+   times both, and prints the posterior max-abs-diff against the log-space
+   ``fb_grouped`` on the same inputs (≤ 1e-3).
+2d. The same for ``fb_chains_scaled`` on phase 2b's inputs, at the
+   default cluster size.
 3. The batched path at full width: ``analysis.pipeline.fit_many`` on that
    experiment with the 8 restarts, 2 EM iterations × 2 VI sweeps (the one
    cut: the defaults are 5 × 5). Checks finite ELBOs, the decoded copy
    number's shape, and that every chain forward-backward of the run went
    through the ``fb_grouped`` kernel.
 4. float32 on the card vs float64 on the CPU at a small size (N=60, max
-   copy number 4, 5 sweeps), restart-batched (R=4) and one restart:
+   copy number 4, 5 sweeps), restart-batched (R=4) and one restart, each
+   with the log-space and with the scaled-linear chain forward-backward:
    posterior max-abs-diff ≤ 1e-3 each.
 5. Where the time goes: the batched fit once more (1 EM × 2 VI) under
    ``torch.profiler``: the device's busy share, device time per fit stage,
@@ -37,11 +44,18 @@ Phases, in order; any failure exits non-zero:
    chain forward-backward went through the ``fb_chains`` kernel; reports its
    stage times and, per restart, the share of segments whose decoded copy
    number equals phase 3's.
+7. Both paths with the scaled-linear switch on (``fb_grouped.SCALED_LINEAR``,
+   the ``REMIXT_TPU_SCALED_LINEAR=1`` of the JAX package): phase 3's wave
+   through the batched ``fit_many`` and restart 0 through the sequential
+   one, at the depth of phases 3 and 6 (2 EM × 2 VI) so that their decoded
+   copy number compares with theirs (≥ 0.99 of the segments). Checks that
+   every chain forward-backward went through the scaled kernels.
 
 The line before the last holds the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -57,8 +71,11 @@ N_FULL, EVENTS_FULL, CHAINS_FULL, CN_MAX_FULL = 6000, 300, 23, 12
 WAVE = 8
 NUM_EM_ITER, NUM_UPDATE_ITER = 2, 2
 SEQUENTIAL_RESTARTS = 2
-KERNELS = ('fb_grouped', 'fb_chains')
+BUILD_UNITS = ('fb_grouped', 'fb_chains')
 CLUSTERS = (4, 8)
+# the scaled fits decode the copy number of the log-space fits on at
+# least this share of the segments
+SAME_CN_SHARE = 0.99
 
 
 START = time.time()
@@ -134,13 +151,13 @@ def phase_environment():
         torch.__version__, torch.version.cuda, sys.version.split()[0]))
     log('card: ' + smi)
     t0 = time.time()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        list(pool.map(_build.build, KERNELS))
-    for name in KERNELS:
+    with ThreadPoolExecutor(len(BUILD_UNITS)) as pool:
+        list(pool.map(_build.build, BUILD_UNITS))
+    for name in BUILD_UNITS:
         _build.load(name)
-    log('phase 1: built {} in {:.2f} s'.format(', '.join(KERNELS),
+    log('phase 1: built {} in {:.2f} s'.format(', '.join(BUILD_UNITS),
                                               time.time() - t0))
-    for name in KERNELS:
+    for name in BUILD_UNITS:
         for line in _build.build_logs.get(name, '').splitlines():
             if 'registers' in line or 'spill' in line or 'smem' in line:
                 log('  ptxas {}: {}'.format(name, line.strip()))
@@ -177,15 +194,13 @@ def check_log_norm(spec, kernel, plain):
                                rtol=1e-5)
 
 
-def bound(spec, frames, static_exp, be_exp, cbi, outputs):
-    """The least time of one forward-backward over these inputs: each
-    array moved once over the HBM rate, or the fp32 work over the fp32
-    rate, whichever is larger. Returns (ms, 'bytes' or 'operations',
-    bytes_ms, flops_ms, bytes, flops)."""
-    R = frames.numel() // (spec.Q * spec.L * spec.S)
+def bound(spec, R, inputs, outputs):
+    """The least time of one forward-backward of R restarts: each input
+    and output array moved once over the HBM rate, or the fp32 work over
+    the fp32 rate, whichever is larger. Returns (ms, 'bytes' or
+    'operations', bytes_ms, flops_ms, bytes, flops)."""
     S, L = spec.S, spec.L
-    nbytes = 4 * (frames.numel() + static_exp.numel() + be_exp.numel()
-                  + cbi.numel() + sum(o.numel() for o in outputs))
+    nbytes = 4 * sum(x.numel() for x in tuple(inputs) + tuple(outputs))
     steps = spec.chain_bank_idx[:, :L - 1].cpu().numpy()
     matvec_steps = int((steps != 0).sum())
     cut_steps = int((steps == 0).sum())
@@ -199,17 +214,18 @@ def bound(spec, frames, static_exp, be_exp, cbi, outputs):
     return max(bytes_ms, flops_ms), by, bytes_ms, flops_ms, nbytes, flops
 
 
-def phase_kernel(data):
-    """The kernel against its plain version at the main path's shapes."""
+def kernel_inputs(data, num_restarts):
+    """The chain forward-backward's inputs at the main path's shapes: the
+    first restarts of phase 3's wave, before their first sweep. Returns
+    (spec, frames (R, Q, L, S), static_exp, be_exp_b (R, J, S, S), cbi)."""
     import torch
     from remixt_tpu_torch.models import engine as eng
     from remixt_tpu_torch.ops import fb_grouped
 
     model = make_model(data, CN_MAX_FULL, 'cuda', torch.float32)
     h_inits, weights = restart_grid(data['h'], WAVE)
-    spec, params_b, state_b = initial_batch(model, h_inits, weights)
-    log('phase 2: N={} S={} M={} K={} J={} Q={} L={} R={}'.format(
-        spec.N, spec.S, spec.M, spec.K, spec.J, spec.Q, spec.L, WAVE))
+    spec, params_b, state_b = initial_batch(model, h_inits[:num_restarts],
+                                            weights[:num_restarts])
     with torch.no_grad():
         ll_tot, ll_alle = eng.emission_tensors(spec, params_b)
         frame_b = eng._mix_framelogprob(spec, params_b, state_b, ll_tot,
@@ -217,10 +233,32 @@ def phase_kernel(data):
         del ll_tot, ll_alle
         be_exp_b = eng.breakend_tmats_exp(spec, state_b.p_breakpoint)
         frames = fb_grouped.gather_frames(frame_b, spec.chain_seg_map)
-        frames = frames.contiguous()
-        static_exp = torch.exp(spec.static_bank).contiguous()
-        cbi = spec.chain_bank_idx.contiguous()
+    return (spec, frames.contiguous(), torch.exp(spec.static_bank).contiguous(),
+            be_exp_b, spec.chain_bank_idx.contiguous())
 
+
+def posterior_diff(spec, messages, reference):
+    """Max abs difference of the segment posteriors of two (alphas, betas)
+    pairs, chain-major (R, Q, L, S)."""
+    from remixt_tpu_torch.ops import fb_grouped
+    from remixt_tpu_torch.ops.special import exp_normalize
+    post = []
+    for a, b in (messages, reference):
+        alphas, betas, _ = fb_grouped._scatter_and_norm(
+            a, b, spec.chain_seg_map, spec.chain_last, spec.N)
+        post.append(exp_normalize(alphas + betas, dim=-1))
+    return float((post[0] - post[1]).abs().max())
+
+
+def phase_kernel(inputs):
+    """The kernel against its plain version at the main path's shapes."""
+    import torch
+    from remixt_tpu_torch.ops import fb_grouped
+
+    spec, frames, static_exp, be_exp_b, cbi = inputs
+    log('phase 2: N={} S={} M={} K={} J={} Q={} L={} R={}'.format(
+        spec.N, spec.S, spec.M, spec.K, spec.J, spec.Q, spec.L, WAVE))
+    with torch.no_grad():
         a_k, b_k = fb_grouped.fb_grouped_cuda(frames, static_exp, be_exp_b,
                                               cbi)
         torch.cuda.synchronize()
@@ -237,43 +275,30 @@ def phase_kernel(data):
             frames, static_exp, be_exp_b, cbi), reps=5)
 
     bound_ms, bound_by, _, _, nbytes, flops = bound(
-        spec, frames, static_exp, be_exp_b, cbi, (a_k, b_k))
+        spec, WAVE, (frames, static_exp, be_exp_b, cbi), (a_k, b_k))
     log('phase 2: kernel {:.3f} ms, plain {:.3f} ms, bound {:.3f} ms ({}; '
         '{:.3f} GB, {:.3f} GFLOP), max abs diff {:.3e}, J={}'.format(
             ms, plain_ms, bound_ms, bound_by, nbytes / 1e9, flops / 1e9,
             max_err, be_exp_b.shape[1]))
     return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+                bound_ms=bound_ms, bound_by=bound_by), (a_k, b_k)
 
 
-def phase_kernel_chains(data):
+def phase_kernel_chains(inputs):
     """The single-restart kernel against its plain version at the main
     path's shapes: restart 0 of phase 2's wave, each cluster size."""
     import torch
-    from remixt_tpu_torch.models import engine as eng
     from remixt_tpu_torch.ops import fb_chains, fb_grouped
 
-    model = make_model(data, CN_MAX_FULL, 'cuda', torch.float32)
-    h_inits, weights = restart_grid(data['h'], WAVE)
-    spec, params_b, state_b = initial_batch(model, h_inits[:1], weights[:1])
+    spec, frames, static_exp, be_exp, cbi = inputs
     with torch.no_grad():
-        ll_tot, ll_alle = eng.emission_tensors(spec, params_b)
-        frame = eng._mix_framelogprob(spec, params_b, state_b, ll_tot,
-                                      ll_alle)[0]
-        del ll_tot, ll_alle
-        be_exp = eng.breakend_tmats_exp(spec, state_b.p_breakpoint)[0]
-        frames = fb_grouped.gather_frames(
-            frame[None], spec.chain_seg_map)[0].contiguous()
-        static_exp = torch.exp(spec.static_bank).contiguous()
-        cbi = spec.chain_bank_idx.contiguous()
-
         a_p, b_p = fb_chains.fb_chains_reference(frames, static_exp, be_exp,
                                                  cbi)
         torch.cuda.synchronize()
-        cluster_ms, max_err = {}, 0.0
+        cluster_ms, messages, max_err = {}, {}, 0.0
         for cluster in CLUSTERS:
-            a_k, b_k = fb_chains.fb_chains_cuda(frames, static_exp, be_exp,
-                                                cbi, cluster=cluster)
+            a_k, b_k = messages[cluster] = fb_chains.fb_chains_cuda(
+                frames, static_exp, be_exp, cbi, cluster=cluster)
             torch.cuda.synchronize()
             max_err = max(max_err, check_messages(((a_k, a_p), (b_k, b_p))))
             check_log_norm(spec, (a_k[None], b_k[None]),
@@ -288,7 +313,7 @@ def phase_kernel_chains(data):
             frames[None], static_exp, be_exp[None], cbi), reps=7)
 
     bound_ms, bound_by, bytes_ms, flops_ms, nbytes, flops = bound(
-        spec, frames, static_exp, be_exp, cbi, (a_k, b_k))
+        spec, 1, (frames, static_exp, be_exp, cbi), (a_k, b_k))
     log('phase 2b: one restart, Q={} L={} S={} J={}; max abs diff {:.3e}'
         .format(spec.Q, spec.L, spec.S, be_exp.shape[0], max_err))
     log('phase 2b: fb_chains ms by cluster size {}; plain {:.3f} ms; '
@@ -300,33 +325,110 @@ def phase_kernel_chains(data):
             bound_ms, bound_by, nbytes / 1e9, bytes_ms, flops / 1e9,
             flops_ms))
     return dict(max_abs_err=max_err, ms=cluster_ms[fb_chains.CLUSTER],
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+                plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by), messages[fb_chains.CLUSTER]
 
 
-def phase_fit(data):
-    """fit_many at full width, with per-stage wall times."""
+def phase_kernel_scaled(label, inputs, kernel, plain, log_space):
+    """A scaled kernel against its plain version on ``inputs`` (R, Q, L, S
+    with R = 1 dropped for the single-restart kernel); also its posteriors
+    against the log-space kernel's ``log_space`` messages on the same
+    inputs, ≤ 1e-3."""
+    import torch
+    from remixt_tpu_torch.ops import fb_grouped
+
+    spec, frames, static_exp, be_exp, cbi = inputs
+    R = frames.shape[0] if frames.dim() == 4 else 1
+    batch = (lambda m: m) if frames.dim() == 4 else (
+        lambda m: tuple(x[None] for x in m))
+    with torch.no_grad():
+        k = kernel(frames, static_exp, be_exp, cbi)
+        torch.cuda.synchronize()
+        p = plain(frames, static_exp, be_exp, cbi)
+        torch.cuda.synchronize()
+        max_err = check_messages(zip(k, p))
+        check_log_norm(spec, batch(k), batch(p))
+        del p
+        post_diff = posterior_diff(spec, batch(k), batch(log_space))
+        if not post_diff <= 1e-3:
+            raise AssertionError('{}: posteriors differ from the log-space '
+                                 'kernel\'s by {}'.format(label, post_diff))
+        ms = cuda_ms(lambda: kernel(frames, static_exp, be_exp, cbi), reps=7)
+        plain_ms = cuda_ms(lambda: plain(frames, static_exp, be_exp, cbi),
+                           reps=5)
+        shift_ms = cuda_ms(lambda: fb_grouped.shift_frames(frames), reps=7)
+        fexp, fmax = fb_grouped.shift_frames(frames)
+
+    bound_ms, bound_by, bytes_ms, flops_ms, nbytes, flops = bound(
+        spec, R, (fexp, fmax, static_exp, be_exp, cbi), k)
+    log('{}: kernel {:.3f} ms (of it the frame shift in torch {:.3f} ms), '
+        'plain {:.3f} ms, max abs diff {:.3e}'.format(
+            label, ms, shift_ms, plain_ms, max_err))
+    log('{}: bound {:.4f} ms ({}): bytes {:.4f} GB = {:.4f} ms, fp32 {:.3f} '
+        'GFLOP = {:.4f} ms; posterior max abs diff vs the log-space kernel '
+        '{:.3e}'.format(label, bound_ms, bound_by, nbytes / 1e9, bytes_ms,
+                        flops / 1e9, flops_ms, post_diff))
+    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+@contextlib.contextmanager
+def scaled_switch(on):
+    """The scaled-linear switch of both chain wrappers, restored after."""
+    from remixt_tpu_torch.ops import fb_grouped
+    before = fb_grouped.SCALED_LINEAR
+    fb_grouped.SCALED_LINEAR = on
+    try:
+        yield
+    finally:
+        fb_grouped.SCALED_LINEAR = before
+
+
+def chain_launches():
+    """The launch counters of the four chain kernels, by kernel name."""
+    from remixt_tpu_torch.ops import fb_chains, fb_grouped
+    return {'fb_grouped': fb_grouped.LAUNCHES,
+            'fb_chains': fb_chains.LAUNCHES,
+            'fb_grouped_scaled': fb_grouped.LAUNCHES_SCALED,
+            'fb_chains_scaled': fb_chains.LAUNCHES_SCALED}
+
+
+def reset_chain_launches():
+    from remixt_tpu_torch.ops import fb_chains, fb_grouped
+    fb_grouped.LAUNCHES = fb_chains.LAUNCHES = 0
+    fb_grouped.LAUNCHES_SCALED = fb_chains.LAUNCHES_SCALED = 0
+
+
+def timed_fit(data, num_restarts, batched):
+    """``fit_many`` over the first ``num_restarts`` of phase 3's grid,
+    batched or one restart at a time, 2 EM × 2 VI, with per-stage wall
+    times. Returns the results, the stages, the wall time and the chain
+    kernels' launches during the fit."""
     import torch
     from remixt_tpu_torch.analysis import pipeline
     from remixt_tpu_torch.models import em, engine as eng
-    from remixt_tpu_torch.ops import fb_chains, fb_grouped
 
-    init_params, config, experiment = fit_inputs(data, NUM_EM_ITER)
+    init_params, config, experiment = fit_inputs(
+        data, NUM_EM_ITER, num_restarts=num_restarts)
+    config['batch_restarts'] = batched
+    # the batched functions carry these suffixes
+    e, m = ('_restarts', '_batched') if batched else ('', '')
     stages = {}
     timed = stage_timer(stages)
     originals = [
-        (eng, 'variational_sweeps_restarts',
-         timed(eng, 'variational_sweeps_restarts', 'sweeps')),
-        (eng, 'calculate_elbo_restarts',
-         timed(eng, 'calculate_elbo_restarts', 'initial_elbo')),
-        (em, 'update_h_fused_batched',
-         timed(em, 'update_h_fused_batched', 'h_update')),
-        (em, 'param_sample_weights_all_batched',
-         timed(em, 'param_sample_weights_all_batched', 'sample_weights')),
-        (em, 'update_params_fused_batched',
-         timed(em, 'update_params_fused_batched', 'params_update_elbo')),
+        (eng, 'variational_sweeps' + e,
+         timed(eng, 'variational_sweeps' + e, 'sweeps')),
+        (eng, 'calculate_elbo' + e,
+         timed(eng, 'calculate_elbo' + e, 'initial_elbo')),
+        (em, 'update_h_fused' + m, timed(em, 'update_h_fused' + m,
+                                         'h_update')),
+        (em, 'param_sample_weights_all' + m,
+         timed(em, 'param_sample_weights_all' + m, 'sample_weights')),
+        (em, 'update_params_fused' + m,
+         timed(em, 'update_params_fused' + m, 'params_update_elbo')),
     ]
     torch.cuda.reset_peak_memory_stats()
-    fb_grouped.LAUNCHES = fb_chains.LAUNCHES = 0
+    reset_chain_launches()
     t0 = time.time()
     try:
         results = pipeline.fit_many(experiment, init_params, config)
@@ -334,42 +436,56 @@ def phase_fit(data):
         for module, name, fn in originals:
             setattr(module, name, fn)
     torch.cuda.synchronize()
-    wall = time.time() - t0
-    launches = fb_grouped.LAUNCHES
+    return results, stages, time.time() - t0, chain_launches()
 
-    waves = -(-len(init_params) // WAVE)
+
+def expect_launches(label, launches, name, expected):
+    """Kernel ``name`` launched ``expected`` times in the run, every other
+    chain kernel never."""
+    want = {k: expected if k == name else 0 for k in launches}
+    if launches != want:
+        raise AssertionError('{}: chain kernel launches {}, expected {}'
+                             .format(label, launches, want))
+
+
+def em_iterations(stages, n_em):
+    return [sum(stages[k][i] for k in ('sweeps', 'h_update',
+                                       'sample_weights',
+                                       'params_update_elbo'))
+            for i in range(n_em)]
+
+
+def log_fit(label, stages, wall, n_em, results):
+    import torch
+    per_sweep = [x / NUM_UPDATE_ITER for x in stages['sweeps']]
+    log('{}: wall {:.3f} s; per EM iteration {} s; per sweep {} s'.format(
+        label, wall, ['{:.3f}'.format(x) for x in em_iterations(stages, n_em)],
+        ['{:.4f}'.format(x) for x in per_sweep]))
+    log('{}: stages '.format(label) + json.dumps(
+        {k: [round(x, 4) for x in v] for k, v in stages.items()}))
+    log('{}: max_memory_allocated {:.3f} GB, ELBOs {}'.format(
+        label, torch.cuda.max_memory_allocated() / 1e9,
+        np.array2string(check_results(results), precision=2)))
+
+
+def phase_fit(data):
+    """fit_many at full width, with per-stage wall times."""
+    results, stages, wall, launches = timed_fit(data, WAVE, batched=True)
+    waves = -(-len(results) // WAVE)
     expected = waves * NUM_EM_ITER * NUM_UPDATE_ITER
-    if launches != expected or fb_chains.LAUNCHES:
-        raise AssertionError(
-            'fb_grouped launched {} times in the batched fit, expected {}; '
-            'fb_chains {} times, expected 0'.format(
-                launches, expected, fb_chains.LAUNCHES))
-    elbos = check_results(results)
-
-    per_em = [sum(stages[k][i] for k in ('sweeps', 'h_update',
-                                         'sample_weights',
-                                         'params_update_elbo'))
-              for i in range(NUM_EM_ITER)]
-    per_sweep = [s / NUM_UPDATE_ITER for s in stages['sweeps']]
+    expect_launches('phase 3', launches, 'fb_grouped', expected)
+    log('phase 3: fit_many, {} restarts in {} wave(s), {} EM x {} VI '
+        '(depth cut from the 5 x 5 defaults), fb_grouped launches {}'.format(
+            len(results), waves, NUM_EM_ITER, NUM_UPDATE_ITER, expected))
+    log_fit('phase 3', stages, wall, NUM_EM_ITER, results)
     truth = data['cn'][:, 1:, :]
     best = max(results.values(), key=lambda r: r['stats']['elbo'])
     dec = best['cn'][:, 1:, :]
     exact = (np.all(dec == truth, axis=(1, 2))
              | np.all(dec == truth[:, :, ::-1], axis=(1, 2)))
-    log('phase 3: fit_many, {} restarts in {} wave(s), {} EM x {} VI '
-        '(depth cut from the 5 x 5 defaults)'.format(
-            len(init_params), waves, NUM_EM_ITER, NUM_UPDATE_ITER))
-    log('phase 3: wall {:.3f} s; per EM iteration {} s; per sweep {} s'
-        .format(wall, ['{:.3f}'.format(x) for x in per_em],
-                ['{:.3f}'.format(x) for x in per_sweep]))
-    log('phase 3: stages ' + json.dumps(
-        {k: [round(x, 4) for x in v] for k, v in stages.items()}))
-    log('phase 3: max_memory_allocated {:.3f} GB, fb_grouped launches {}, '
-        'ELBOs {}'.format(torch.cuda.max_memory_allocated() / 1e9, launches,
-                          np.array2string(elbos, precision=2)))
     log('phase 3: best restart h {}, exact tumour cn on {:.3f} of segments'
         .format(np.array2string(best['h'], precision=5), exact.mean()))
-    return launches, results
+    return expected, results
 
 
 def check_results(results):
@@ -427,70 +543,65 @@ def stage_timer(stages):
     return timed
 
 
+def same_cn(results, reference):
+    """Per restart, the share of segments whose decoded copy number equals
+    the reference fit's."""
+    return {i: float(np.all(r['cn'] == reference[i]['cn'],
+                            axis=(1, 2)).mean())
+            for i, r in results.items()}
+
+
 def phase_sequential_fit(data, batched_results):
     """The single-restart path at full width: the sequential fit_many over
     the first restarts of phase 3's grid, with per-stage wall times."""
-    import torch
-    from remixt_tpu_torch.analysis import pipeline
-    from remixt_tpu_torch.models import em, engine as eng
-    from remixt_tpu_torch.ops import fb_chains, fb_grouped
-
-    init_params, config, experiment = fit_inputs(
-        data, NUM_EM_ITER, num_restarts=SEQUENTIAL_RESTARTS)
-    config['batch_restarts'] = False
-    stages = {}
-    timed = stage_timer(stages)
-    originals = [
-        (eng, 'variational_sweeps',
-         timed(eng, 'variational_sweeps', 'sweeps')),
-        (eng, 'calculate_elbo', timed(eng, 'calculate_elbo', 'initial_elbo')),
-        (em, 'update_h_fused', timed(em, 'update_h_fused', 'h_update')),
-        (em, 'param_sample_weights_all',
-         timed(em, 'param_sample_weights_all', 'sample_weights')),
-        (em, 'update_params_fused',
-         timed(em, 'update_params_fused', 'params_update_elbo')),
-    ]
-    torch.cuda.reset_peak_memory_stats()
-    fb_grouped.LAUNCHES = fb_chains.LAUNCHES = 0
-    t0 = time.time()
-    try:
-        results = pipeline.fit_many(experiment, init_params, config)
-    finally:
-        for module, name, fn in originals:
-            setattr(module, name, fn)
-    torch.cuda.synchronize()
-    wall = time.time() - t0
-    launches = fb_chains.LAUNCHES
-
+    results, stages, wall, launches = timed_fit(
+        data, SEQUENTIAL_RESTARTS, batched=False)
     expected = SEQUENTIAL_RESTARTS * NUM_EM_ITER * NUM_UPDATE_ITER
-    if launches != expected or fb_grouped.LAUNCHES:
-        raise AssertionError(
-            'fb_chains launched {} times in the sequential fit, expected {}; '
-            'fb_grouped {} times, expected 0'.format(
-                launches, expected, fb_grouped.LAUNCHES))
-    elbos = check_results(results)
-
-    n_em = SEQUENTIAL_RESTARTS * NUM_EM_ITER
-    per_em = [sum(stages[k][i] for k in ('sweeps', 'h_update',
-                                         'sample_weights',
-                                         'params_update_elbo'))
-              for i in range(n_em)]
-    per_sweep = [s / NUM_UPDATE_ITER for s in stages['sweeps']]
-    same_cn = {i: float(np.all(r['cn'] == batched_results[i]['cn'],
-                               axis=(1, 2)).mean())
-               for i, r in results.items()}
+    expect_launches('phase 6', launches, 'fb_chains', expected)
     log('phase 6: sequential fit_many, {} restarts one at a time, {} EM x {} '
-        'VI'.format(SEQUENTIAL_RESTARTS, NUM_EM_ITER, NUM_UPDATE_ITER))
-    log('phase 6: wall {:.3f} s; per EM iteration {} s; per sweep {} s'
-        .format(wall, ['{:.3f}'.format(x) for x in per_em],
-                ['{:.4f}'.format(x) for x in per_sweep]))
-    log('phase 6: stages ' + json.dumps(
-        {k: [round(x, 4) for x in v] for k, v in stages.items()}))
-    log('phase 6: max_memory_allocated {:.3f} GB, fb_chains launches {}, '
-        'ELBOs {}'.format(torch.cuda.max_memory_allocated() / 1e9, launches,
-                          np.array2string(elbos, precision=2)))
+        'VI, fb_chains launches {}'.format(
+            SEQUENTIAL_RESTARTS, NUM_EM_ITER, NUM_UPDATE_ITER, expected))
+    log_fit('phase 6', stages, wall, SEQUENTIAL_RESTARTS * NUM_EM_ITER,
+            results)
     log('phase 6: share of segments whose cn equals the batched fit of '
-        'phase 3, per restart: ' + json.dumps(same_cn))
+        'phase 3, per restart: ' + json.dumps(same_cn(results,
+                                                      batched_results)))
+    return expected, results
+
+
+def phase_scaled_fits(data, batched_results, sequential_results):
+    """Both fit paths at full width with the scaled-linear switch on:
+    phase 3's wave batched and restart 0 one at a time, against the
+    log-space fits of phases 3 and 6."""
+    sweeps = NUM_EM_ITER * NUM_UPDATE_ITER
+    launches = {}
+    with scaled_switch(True):
+        for label, num_restarts, batched, name, reference in (
+                ('phase 7 batched', WAVE, True, 'fb_grouped_scaled',
+                 batched_results),
+                ('phase 7 sequential', 1, False, 'fb_chains_scaled',
+                 sequential_results)):
+            results, stages, wall, counts = timed_fit(data, num_restarts,
+                                                      batched)
+            expected = -(-num_restarts // WAVE) * sweeps if batched else (
+                num_restarts * sweeps)
+            expect_launches(label, counts, name, expected)
+            launches[name] = expected
+            log('{}: fit_many, {} restart(s), {} EM x {} VI, scaled-linear '
+                'switch on, {} launches {}'.format(
+                    label, num_restarts, NUM_EM_ITER, NUM_UPDATE_ITER, name,
+                    expected))
+            log_fit(label, stages, wall, (1 if batched else num_restarts)
+                    * NUM_EM_ITER, results)
+            shares = same_cn(results, reference)
+            log('{}: share of segments whose cn equals the log-space fit '
+                '(phase {}), per restart: {}'.format(
+                    label, 3 if batched else 6, json.dumps(shares)))
+            if min(shares.values()) < SAME_CN_SHARE:
+                raise AssertionError('{}: scaled fit decodes another copy '
+                                     'number on more than {:.0%} of the '
+                                     'segments'.format(
+                                         label, 1 - SAME_CN_SHARE))
     return launches
 
 
@@ -586,24 +697,31 @@ def phase_small_f32_vs_f64():
 
     data = simulate(60, 4, 8, 2, seed=2)
     h_inits, weights = restart_grid(data['h'], 4, seed=3)
-    marg = {}
-    for device, dtype in (('cuda', torch.float32), ('cpu', torch.float64)):
-        model = make_model(data, 4, device, dtype)
-        spec, params_b, state_b = initial_batch(model, h_inits, weights)
-        swept_b = eng.variational_sweeps_restarts(spec, params_b, state_b, 5)
-        swept = eng.variational_sweeps(spec, eng.take(params_b, 0),
-                                       eng.take(state_b, 0), 5)
-        marg[device] = [s.posterior_marginals.double().cpu().numpy()
-                        for s in (swept_b, swept)]
-    for label, card, cpu in zip(('R=4', 'one restart'), marg['cuda'],
-                                marg['cpu']):
-        diff = float(np.abs(card - cpu).max())
-        log('phase 4: f32 card vs f64 CPU, N=60 S={} {}, 5 sweeps: '
-            'posterior max abs diff {:.3e}'.format(cpu.shape[-1], label,
-                                                   diff))
-        if not diff <= 1e-3:
-            raise AssertionError('f32 posteriors ({}) differ from f64 by {}'
-                                 .format(label, diff))
+    for scaled in (False, True):
+        marg = {}
+        with scaled_switch(scaled):
+            for device, dtype in (('cuda', torch.float32),
+                                  ('cpu', torch.float64)):
+                model = make_model(data, 4, device, dtype)
+                spec, params_b, state_b = initial_batch(model, h_inits,
+                                                        weights)
+                swept_b = eng.variational_sweeps_restarts(spec, params_b,
+                                                          state_b, 5)
+                swept = eng.variational_sweeps(spec, eng.take(params_b, 0),
+                                               eng.take(state_b, 0), 5)
+                marg[device] = [s.posterior_marginals.double().cpu().numpy()
+                                for s in (swept_b, swept)]
+        recursion = 'scaled-linear' if scaled else 'log-space'
+        for label, card, cpu in zip(('R=4', 'one restart'), marg['cuda'],
+                                    marg['cpu']):
+            diff = float(np.abs(card - cpu).max())
+            log('phase 4: {}, f32 card vs f64 CPU, N=60 S={} {}, 5 sweeps: '
+                'posterior max abs diff {:.3e}'.format(
+                    recursion, cpu.shape[-1], label, diff))
+            if not diff <= 1e-3:
+                raise AssertionError('f32 posteriors ({}, {}) differ from '
+                                     'f64 by {}'.format(recursion, label,
+                                                        diff))
 
 
 def main():
@@ -616,24 +734,46 @@ def main():
 
     smi = phase_environment()
     data = simulate(N_FULL, CN_MAX_FULL, EVENTS_FULL, CHAINS_FULL, seed=0)
-    grouped = phase_kernel(data)
-    chains = phase_kernel_chains(data)
+    from remixt_tpu_torch.ops import fb_chains, fb_grouped
+    inputs = kernel_inputs(data, WAVE)
+    spec, frames, static_exp, be_exp_b, cbi = inputs
+    one = (spec, frames[0], static_exp, be_exp_b[0], cbi)
+    grouped, grouped_messages = phase_kernel(inputs)
+    chains, chains_messages = phase_kernel_chains(one)
+    grouped_scaled = phase_kernel_scaled(
+        'phase 2c', inputs, fb_grouped.fb_grouped_scaled_cuda,
+        fb_grouped.fb_grouped_scaled_reference, grouped_messages)
+    chains_scaled = phase_kernel_scaled(
+        'phase 2d', one, fb_chains.fb_chains_scaled_cuda,
+        fb_chains.fb_chains_scaled_reference, chains_messages)
+    del inputs, one, frames, be_exp_b, grouped_messages, chains_messages
     grouped['launches'], batched_results = phase_fit(data)
     phase_small_f32_vs_f64()
     phase_profile(data)
-    chains['launches'] = phase_sequential_fit(data, batched_results)
+    chains['launches'], sequential_results = phase_sequential_fit(
+        data, batched_results)
+    scaled_launches = phase_scaled_fits(data, batched_results,
+                                        sequential_results)
+    grouped_scaled['launches'] = scaled_launches['fb_grouped_scaled']
+    chains_scaled['launches'] = scaled_launches['fb_chains_scaled']
 
     print(smi)
     table = {'kernels': [
         dict(name=name, route='cuda',
-             source='remixt_tpu_torch/csrc/{}.cu'.format(name),
+             source='remixt_tpu_torch/csrc/{}.cu'.format(source),
              replaces=replaces, launches=k['launches'],
              max_abs_err=k['max_abs_err'], ms=k['ms'],
              plain_ms=k['plain_ms'], bound_ms=k['bound_ms'],
              bound_by=k['bound_by'], library_ms=None)
-        for name, replaces, k in (
-            ('fb_grouped', 'remixt_tpu/ops/fb_pallas.py:744', grouped),
-            ('fb_chains', 'remixt_tpu/ops/fb_pallas.py:152', chains))]}
+        for name, source, replaces, k in (
+            ('fb_grouped', 'fb_grouped', 'remixt_tpu/ops/fb_pallas.py:744',
+             grouped),
+            ('fb_chains', 'fb_chains', 'remixt_tpu/ops/fb_pallas.py:152',
+             chains),
+            ('fb_grouped_scaled', 'fb_grouped',
+             'remixt_tpu/ops/fb_pallas.py:911', grouped_scaled),
+            ('fb_chains_scaled', 'fb_chains',
+             'remixt_tpu/ops/fb_pallas.py:260', chains_scaled))]}
     print(json.dumps(table))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -31,6 +31,7 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
+from remixt_tpu_torch.device import resolve_device
 from remixt_tpu_torch.models import states as states_mod
 from remixt_tpu_torch.ops import fb_chains, fb_grouped, fb_scan
 from remixt_tpu_torch.ops.special import (
@@ -95,7 +96,8 @@ class ModelSpec:
     """Static per-problem data: state space, chain structure, data vectors.
 
     Built on the host from the same construction arguments as the JAX
-    ``ModelSpec``; arrays live on ``device`` in ``dtype``.
+    ``ModelSpec``; arrays live on ``device`` in ``dtype``. ``device=None``
+    means CUDA and raises without a CUDA device, as every entry point.
     """
 
     def __init__(self,
@@ -109,7 +111,7 @@ class ModelSpec:
                  normal_contamination,
                  transition_model=0,
                  dtype=torch.float32,
-                 device='cpu',
+                 device=None,
                  xi_chunk=256):
         cn_states = np.asarray(cn_states, dtype=np.int64)
         brk_states = np.asarray(brk_states, dtype=np.int64)
@@ -127,7 +129,7 @@ class ModelSpec:
         self.transition_model = int(transition_model)
         self.transition_penalty = float(abs(transition_penalty))
         self.dtype = dtype
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.xi_chunk = int(xi_chunk)
 
         if np.any((breakpoint_idx >= 0) & (is_telomere == 1)):

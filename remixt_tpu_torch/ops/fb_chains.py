@@ -19,17 +19,19 @@ positions and S states:
 
 Returns alphas (N, S), betas (N, S) and the scalar log_norm, with the
 recursion and the per-chain beta shift of ``ops/fb_grouped.py``, whose
-frame gather and output scatter it reuses at one restart.
+frame gather and output scatter it reuses at one restart. The switch
+``fb_grouped.SCALED_LINEAR`` selects the scaled-linear recursion here too:
+the counterpart of ``_fb_kernel_scaled`` (``fb_pallas.py:260``), computed by
+a second kernel of ``csrc/fb_chains.cu``.
 """
-
-import ctypes
 
 import torch
 
 from remixt_tpu_torch.ops import fb_grouped
 
-#: launches of the CUDA kernel (one launch runs both directions)
+#: launches of the CUDA kernels (one launch runs both directions)
 LAUNCHES = 0
+LAUNCHES_SCALED = 0
 
 #: thread blocks per (chain, direction) cluster on the main path
 CLUSTER = 4
@@ -44,6 +46,15 @@ def fb_chains_reference(frames, static_exp, be_exp, chain_bank_idx):
     return alphas[0], betas[0]
 
 
+def fb_chains_scaled_reference(frames, static_exp, be_exp, chain_bank_idx):
+    """Plain version of the scaled kernel, same contract as
+    :func:`fb_chains_reference`: the restart-batched plain scaled version
+    at one restart."""
+    alphas, betas = fb_grouped.fb_grouped_scaled_reference(
+        frames[None], static_exp, be_exp[None], chain_bank_idx)
+    return alphas[0], betas[0]
+
+
 def _launch_threads(S, cluster):
     """Threads per block: whole warps over the block's column slice, times
     as many row groups as give the cluster about 2048 threads (all 46
@@ -53,78 +64,84 @@ def _launch_threads(S, cluster):
     return min(1024, span * max(1, 2048 // cluster // span))
 
 
+def _launch(scaled, frames, static_exp, be_exp, chain_bank_idx, cluster):
+    global LAUNCHES, LAUNCHES_SCALED
+    cluster = CLUSTER if cluster is None else int(cluster)
+    if not 1 <= cluster <= 8:
+        raise ValueError('cluster must be 1 to 8, got {}'.format(cluster))
+    Q, L, S = frames.shape
+    fb_grouped.check_inputs(frames, static_exp, be_exp, chain_bank_idx)
+    if Q == 0:
+        return torch.empty_like(frames), torch.empty_like(frames)
+
+    if scaled:
+        fn, err_string = fb_grouped.load_launcher(
+            'fb_chains', 'fb_chains_scaled_launch', 7, 7)
+        fexp, fmax = fb_grouped.shift_frames(frames)
+        frame_ptrs = (fexp.data_ptr(), fmax.data_ptr())
+    else:
+        fn, err_string = fb_grouped.load_launcher(
+            'fb_chains', 'fb_chains_launch', 6, 7)
+        frame_ptrs = (frames.data_ptr(),)
+    # a breakend-free problem still needs a valid pointer
+    be = be_exp if be_exp.shape[0] else frames.new_zeros(1)
+    alphas = torch.empty_like(frames)
+    betas = torch.empty_like(frames)
+    stream = torch.cuda.current_stream(frames.device).cuda_stream
+    with torch.cuda.device(frames.device):
+        err = fn(*frame_ptrs, static_exp.data_ptr(), be.data_ptr(),
+                 chain_bank_idx.data_ptr(), alphas.data_ptr(),
+                 betas.data_ptr(), Q, L, S, chain_bank_idx.shape[1],
+                 static_exp.shape[0], cluster, _launch_threads(S, cluster),
+                 stream)
+    if err != 0:
+        raise RuntimeError('fb_chains{} kernel launch failed: {}'.format(
+            '_scaled' if scaled else '', err_string(err).decode()))
+    if scaled:
+        LAUNCHES_SCALED += 1
+    else:
+        LAUNCHES += 1
+    return alphas, betas
+
+
 def fb_chains_cuda(frames, static_exp, be_exp, chain_bank_idx,
                    cluster=None):
     """Launch the CUDA kernel on chain-major inputs; same contract as
     :func:`fb_chains_reference`. ``cluster`` blocks (1 to 8) share each
     (chain, direction). Raises on anything it cannot serve, a cluster
     launch the card refuses included."""
-    global LAUNCHES
-    from remixt_tpu_torch.ops import _build
+    return _launch(False, frames, static_exp, be_exp, chain_bank_idx,
+                   cluster)
 
-    cluster = CLUSTER if cluster is None else int(cluster)
-    if not 1 <= cluster <= 8:
-        raise ValueError('cluster must be 1 to 8, got {}'.format(cluster))
-    Q, L, S = frames.shape
-    num_static = static_exp.shape[0]
-    J = be_exp.shape[0]
-    device = frames.device
-    for name, x, dtype, shape in (
-            ('frames', frames, torch.float32, (Q, L, S)),
-            ('static_exp', static_exp, torch.float32, (num_static, S, S)),
-            ('be_exp', be_exp, torch.float32, (J, S, S)),
-            ('chain_bank_idx', chain_bank_idx, torch.int32,
-             (Q, chain_bank_idx.shape[1]))):
-        if x.device != device or x.dtype != dtype or tuple(x.shape) != shape:
-            raise ValueError('{}: expected {} {} on {}, got {} {} on {}'.format(
-                name, dtype, shape, device, x.dtype, tuple(x.shape), x.device))
-        if not x.is_contiguous():
-            raise ValueError('{} must be contiguous'.format(name))
-    if chain_bank_idx.shape[1] < L - 1:
-        raise ValueError('chain_bank_idx has fewer than L-1 steps')
-    if Q == 0:
-        return torch.empty_like(frames), torch.empty_like(frames)
 
-    lib = _build.load('fb_chains')
-    fn = lib.fb_chains_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    lib.fb_chains_error_string.restype = ctypes.c_char_p
-    lib.fb_chains_error_string.argtypes = [ctypes.c_int]
-
-    # a breakend-free problem still needs a valid pointer
-    be = be_exp if J else frames.new_zeros(1)
-    alphas = torch.empty_like(frames)
-    betas = torch.empty_like(frames)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    with torch.cuda.device(device):
-        err = fn(frames.data_ptr(), static_exp.data_ptr(), be.data_ptr(),
-                 chain_bank_idx.data_ptr(), alphas.data_ptr(),
-                 betas.data_ptr(), Q, L, S, chain_bank_idx.shape[1],
-                 num_static, cluster, _launch_threads(S, cluster), stream)
-    if err != 0:
-        raise RuntimeError('fb_chains kernel launch failed: {}'.format(
-            lib.fb_chains_error_string(err).decode()))
-    LAUNCHES += 1
-    return alphas, betas
+def fb_chains_scaled_cuda(frames, static_exp, be_exp, chain_bank_idx,
+                          cluster=None):
+    """Launch the scaled CUDA kernel on chain-major inputs; same contract
+    as :func:`fb_chains_scaled_reference`, and the launch rules of
+    :func:`fb_chains_cuda`. The frame shift runs here, in torch."""
+    return _launch(True, frames, static_exp, be_exp, chain_bank_idx,
+                   cluster)
 
 
 def forward_backward_chains(framelogprob, static_bank, be_exp, chain_bank_idx,
-                            chain_seg_map, chain_last):
+                            chain_seg_map, chain_last, scaled=None):
     """Single-restart chain forward-backward (see the module docstring).
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel or
-    raise."""
+    ``scaled`` picks the scaled-linear recursion; ``None`` means
+    ``fb_grouped.SCALED_LINEAR``. CPU tensors take the plain version; CUDA
+    tensors launch the kernel or raise."""
+    scaled = fb_grouped.SCALED_LINEAR if scaled is None else scaled
     N = framelogprob.shape[0]
     frames = fb_grouped.gather_frames(framelogprob[None], chain_seg_map)[0]
     static_exp = torch.exp(static_bank)
     if framelogprob.device.type == 'cuda':
-        alphas, betas = fb_chains_cuda(
+        launch = fb_chains_scaled_cuda if scaled else fb_chains_cuda
+        alphas, betas = launch(
             frames.contiguous(), static_exp.contiguous(), be_exp.contiguous(),
             chain_bank_idx.to(torch.int32).contiguous())
     elif framelogprob.device.type == 'cpu':
-        alphas, betas = fb_chains_reference(
-            frames, static_exp, be_exp, chain_bank_idx)
+        plain = fb_chains_scaled_reference if scaled else fb_chains_reference
+        alphas, betas = plain(frames, static_exp, be_exp, chain_bank_idx)
     else:
         raise ValueError('unsupported device {}'.format(framelogprob.device))
     alphas, betas, log_norm = fb_grouped._scatter_and_norm(

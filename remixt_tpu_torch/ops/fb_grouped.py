@@ -22,9 +22,19 @@ lane's matrix, and takes ``log(max(s, TINY)) + max``. The recursion runs
 through the pad positions after a chain's end (cut steps with zero
 frames), so the betas of real positions carry a per-chain constant shift
 that cancels in every normalised consumer.
+
+With ``SCALED_LINEAR`` (the ``REMIXT_TPU_SCALED_LINEAR=1`` switch of the
+JAX package) the chain update takes the scaled-linear recursion instead,
+the counterpart of ``_fb_kernel_grouped_scaled`` (``fb_pallas.py:911``):
+the carry ``u`` stays linear, normalised by its maximum each step, with
+a log scale beside it, and the frames enter as ``exp(frame - fmax)``. Its
+messages are ``log(max(u, TINY)) + scale``; only the output is floored, so
+states far below a lane's maximum differ from the log-space recursion,
+which agrees with it on entries within 60 nats of the row maximum.
 """
 
 import ctypes
+import os
 
 import torch
 
@@ -32,8 +42,13 @@ from remixt_tpu_torch.ops.special import logsumexp
 
 TINY = 1e-37
 
-#: launches of the CUDA kernel (one launch runs both directions)
+#: the scaled-linear recursion on both fit paths (read once at import, from
+#: the switch the JAX package reads); ``scaled=None`` means this at call time
+SCALED_LINEAR = os.environ.get('REMIXT_TPU_SCALED_LINEAR', '0') == '1'
+
+#: launches of the CUDA kernels (one launch runs both directions)
 LAUNCHES = 0
+LAUNCHES_SCALED = 0
 
 
 def gather_frames(frame_b, chain_seg_map):
@@ -62,34 +77,38 @@ def _scatter_and_norm(alphas_b, betas_b, chain_seg_map, chain_last, N):
     return alphas, betas, log_norm
 
 
+def _contract(u, b, reverse, static_exp, be_exp_b):
+    """Each lane's (R, Q, S) vector times its matrix at bank indices ``b``
+    (Q,): ``u . M`` forward, ``M . u`` reverse."""
+    num_static = static_exp.shape[0]
+    is_be = b >= num_static
+    M = static_exp[torch.where(is_be, 0, b)]                 # (Q, S, S)
+    eq = 'rqj,qij->rqi' if reverse else 'rqi,qij->rqj'
+    s = torch.einsum(eq, u, M)
+    lanes = torch.nonzero(is_be).flatten()
+    if lanes.numel():
+        Mb = be_exp_b[:, b[lanes] - num_static]              # (R, n, S, S)
+        eqb = 'rnj,rnij->rni' if reverse else 'rni,rnij->rnj'
+        s[:, lanes] = torch.einsum(eqb, u[:, lanes], Mb)
+    return s
+
+
 def fb_grouped_reference(frames, static_exp, be_exp_b, chain_bank_idx):
     """Plain version of the kernel: chain-major frames (R, Q, L, S) in,
     chain-major alphas and betas (R, Q, L, S) out. A Python loop over the
     positions, batched over the R·Q lanes, each lane gathering its own
     matrix."""
     R, Q, L, S = frames.shape
-    num_static = static_exp.shape[0]
     cbi = chain_bank_idx.long().to(frames.device)
     tiny = torch.tensor(TINY, dtype=frames.dtype, device=frames.device)
-
-    def contract(u, b, reverse):
-        is_be = b >= num_static
-        M = static_exp[torch.where(is_be, 0, b)]             # (Q, S, S)
-        eq = 'rqj,qij->rqi' if reverse else 'rqi,qij->rqj'
-        s = torch.einsum(eq, u, M)
-        lanes = torch.nonzero(is_be).flatten()
-        if lanes.numel():
-            Mb = be_exp_b[:, b[lanes] - num_static]          # (R, n, S, S)
-            eqb = 'rnj,rnij->rni' if reverse else 'rni,rnij->rnj'
-            s[:, lanes] = torch.einsum(eqb, u[:, lanes], Mb)
-        return s
 
     alphas = torch.empty_like(frames)
     carry = frames[:, :, 0]
     alphas[:, :, 0] = carry
     for t in range(1, L):
         cmax = carry.amax(dim=-1, keepdim=True)
-        s = contract(torch.exp(carry - cmax), cbi[:, t - 1], False)
+        s = _contract(torch.exp(carry - cmax), cbi[:, t - 1], False,
+                      static_exp, be_exp_b)
         carry = torch.log(torch.maximum(s, tiny)) + cmax + frames[:, :, t]
         alphas[:, :, t] = carry
 
@@ -99,9 +118,54 @@ def fb_grouped_reference(frames, static_exp, be_exp_b, chain_bank_idx):
     for t in range(L - 1, 0, -1):
         c = carry + frames[:, :, t]
         cmax = c.amax(dim=-1, keepdim=True)
-        s = contract(torch.exp(c - cmax), cbi[:, t - 1], True)
+        s = _contract(torch.exp(c - cmax), cbi[:, t - 1], True, static_exp,
+                      be_exp_b)
         carry = torch.log(torch.maximum(s, tiny)) + cmax
         betas[:, :, t - 1] = carry
+    return alphas, betas
+
+
+def shift_frames(frames):
+    """The scaled recursion's frame input: ``fexp = exp(frames - fmax)``
+    and ``fmax``, the maximum over the states (1 and 0 on pad positions)."""
+    fmax = frames.amax(dim=-1)
+    return torch.exp(frames - fmax[..., None]), fmax
+
+
+def fb_grouped_scaled_reference(frames, static_exp, be_exp_b, chain_bank_idx):
+    """Plain version of the scaled kernel, same contract as
+    :func:`fb_grouped_reference`. Each step is ``s = (u . M) * fexp[t]``
+    forward, ``s = M . (u * fexp[t])`` reverse (the cut class sums), then
+    ``m = max(max(s), TINY)``, ``u = s / m``, ``scale += log(m) + fmax[t]``;
+    the messages are ``log(max(u, TINY)) + scale``."""
+    R, Q, L, S = frames.shape
+    cbi = chain_bank_idx.long().to(frames.device)
+    tiny = torch.tensor(TINY, dtype=frames.dtype, device=frames.device)
+    fexp, fmax = shift_frames(frames)
+
+    def normalise(s, scale, t):
+        m = torch.maximum(s.amax(dim=-1, keepdim=True), tiny)
+        return s * (1.0 / m), scale + torch.log(m) + fmax[:, :, t, None]
+
+    def message(u, scale):
+        return torch.log(torch.maximum(u, tiny)) + scale
+
+    alphas = torch.empty_like(frames)
+    u, scale = fexp[:, :, 0], fmax[:, :, 0, None]
+    alphas[:, :, 0] = message(u, scale)
+    for t in range(1, L):
+        s = _contract(u, cbi[:, t - 1], False, static_exp, be_exp_b)
+        u, scale = normalise(s * fexp[:, :, t], scale, t)
+        alphas[:, :, t] = message(u, scale)
+
+    betas = torch.empty_like(frames)
+    u, scale = frames.new_ones((R, Q, S)), frames.new_zeros((R, Q, 1))
+    betas[:, :, L - 1] = message(u, scale)
+    for t in range(L - 1, 0, -1):
+        s = _contract(u * fexp[:, :, t], cbi[:, t - 1], True, static_exp,
+                      be_exp_b)
+        u, scale = normalise(s, scale, t)
+        betas[:, :, t - 1] = message(u, scale)
     return alphas, betas
 
 
@@ -109,73 +173,118 @@ def _launch_threads(S):
     return min(1024, max(32, -(-S // 32) * 32))
 
 
-def fb_grouped_cuda(frames, static_exp, be_exp_b, chain_bank_idx):
-    """Launch the CUDA kernel on chain-major inputs; same contract as
-    :func:`fb_grouped_reference`. Raises on anything it cannot serve."""
-    global LAUNCHES
-    from remixt_tpu_torch.ops import _build
-
-    R, Q, L, S = frames.shape
-    num_static = static_exp.shape[0]
-    J = be_exp_b.shape[1]
-    device = frames.device
+def check_inputs(frames, static_exp, be_exp, chain_bank_idx):
+    """Raise ``ValueError`` unless the kernel inputs are float32 (the
+    schedule int32), contiguous, on one device and of matching shapes:
+    ``frames`` (*lead, Q, L, S), ``be_exp`` (*lead, J, S, S)."""
+    *lead, Q, L, S = frames.shape
+    lead = tuple(lead)
+    J = be_exp.shape[len(lead)] if be_exp.dim() == len(lead) + 3 else 0
     for name, x, dtype, shape in (
-            ('frames', frames, torch.float32, (R, Q, L, S)),
-            ('static_exp', static_exp, torch.float32, (num_static, S, S)),
-            ('be_exp_b', be_exp_b, torch.float32, (R, J, S, S)),
+            ('frames', frames, torch.float32, lead + (Q, L, S)),
+            ('static_exp', static_exp, torch.float32,
+             (static_exp.shape[0], S, S)),
+            ('be_exp', be_exp, torch.float32, lead + (J, S, S)),
             ('chain_bank_idx', chain_bank_idx, torch.int32,
              (Q, chain_bank_idx.shape[1]))):
-        if x.device != device or x.dtype != dtype or tuple(x.shape) != shape:
+        if (x.device != frames.device or x.dtype != dtype
+                or tuple(x.shape) != shape):
             raise ValueError('{}: expected {} {} on {}, got {} {} on {}'.format(
-                name, dtype, shape, device, x.dtype, tuple(x.shape), x.device))
+                name, dtype, shape, frames.device, x.dtype, tuple(x.shape),
+                x.device))
         if not x.is_contiguous():
             raise ValueError('{} must be contiguous'.format(name))
     if chain_bank_idx.shape[1] < L - 1:
         raise ValueError('chain_bank_idx has fewer than L-1 steps')
+
+
+def load_launcher(unit, entry, num_ptrs, num_ints):
+    """The ``extern "C"`` launch function ``entry`` of kernel library
+    ``unit`` (built on first use) and its error-string accessor."""
+    from remixt_tpu_torch.ops import _build
+    lib = _build.load(unit)
+    fn = getattr(lib, entry)
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * num_ptrs + [ctypes.c_int] * num_ints
+                   + [ctypes.c_void_p])
+    err_string = getattr(lib, unit + '_error_string')
+    err_string.restype = ctypes.c_char_p
+    err_string.argtypes = [ctypes.c_int]
+    return fn, err_string
+
+
+def _launch(scaled, frames, static_exp, be_exp_b, chain_bank_idx):
+    global LAUNCHES, LAUNCHES_SCALED
+    R, Q, L, S = frames.shape
+    check_inputs(frames, static_exp, be_exp_b, chain_bank_idx)
+    J = be_exp_b.shape[1]
     if R * Q == 0:
         return torch.empty_like(frames), torch.empty_like(frames)
 
-    lib = _build.load('fb_grouped')
-    fn = lib.fb_grouped_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-    lib.fb_grouped_error_string.restype = ctypes.c_char_p
-    lib.fb_grouped_error_string.argtypes = [ctypes.c_int]
-
+    if scaled:
+        fn, err_string = load_launcher('fb_grouped', 'fb_grouped_scaled_launch',
+                                       7, 8)
+        fexp, fmax = shift_frames(frames)
+        frame_ptrs = (fexp.data_ptr(), fmax.data_ptr())
+    else:
+        fn, err_string = load_launcher('fb_grouped', 'fb_grouped_launch', 6, 8)
+        frame_ptrs = (frames.data_ptr(),)
     # a breakend-free problem still needs a valid pointer
     be = be_exp_b if J else frames.new_zeros(1)
     alphas = torch.empty_like(frames)
     betas = torch.empty_like(frames)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    with torch.cuda.device(device):
-        err = fn(frames.data_ptr(), static_exp.data_ptr(), be.data_ptr(),
+    stream = torch.cuda.current_stream(frames.device).cuda_stream
+    with torch.cuda.device(frames.device):
+        err = fn(*frame_ptrs, static_exp.data_ptr(), be.data_ptr(),
                  chain_bank_idx.data_ptr(), alphas.data_ptr(),
                  betas.data_ptr(), R, Q, L, S, chain_bank_idx.shape[1],
-                 num_static, J, _launch_threads(S), stream)
+                 static_exp.shape[0], J, _launch_threads(S), stream)
     if err != 0:
-        raise RuntimeError('fb_grouped kernel launch failed: {}'.format(
-            lib.fb_grouped_error_string(err).decode()))
-    LAUNCHES += 1
+        raise RuntimeError('fb_grouped{} kernel launch failed: {}'.format(
+            '_scaled' if scaled else '', err_string(err).decode()))
+    if scaled:
+        LAUNCHES_SCALED += 1
+    else:
+        LAUNCHES += 1
     return alphas, betas
+
+
+def fb_grouped_cuda(frames, static_exp, be_exp_b, chain_bank_idx):
+    """Launch the CUDA kernel on chain-major inputs; same contract as
+    :func:`fb_grouped_reference`. Raises on anything it cannot serve."""
+    return _launch(False, frames, static_exp, be_exp_b, chain_bank_idx)
+
+
+def fb_grouped_scaled_cuda(frames, static_exp, be_exp_b, chain_bank_idx):
+    """Launch the scaled CUDA kernel on chain-major inputs; same contract
+    as :func:`fb_grouped_scaled_reference`. The frame shift runs here, in
+    torch, as the JAX wrapper runs it outside its kernel. Raises on
+    anything it cannot serve."""
+    return _launch(True, frames, static_exp, be_exp_b, chain_bank_idx)
 
 
 def forward_backward_chains_grouped(frame_b, static_bank, be_exp_b,
                                     chain_bank_idx, chain_seg_map,
-                                    chain_last):
+                                    chain_last, scaled=None):
     """Restart-batched chain forward-backward (see the module docstring).
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel or
-    raise."""
+    ``scaled`` picks the scaled-linear recursion; ``None`` means
+    ``SCALED_LINEAR``. CPU tensors take the plain version; CUDA tensors
+    launch the kernel or raise."""
+    scaled = SCALED_LINEAR if scaled is None else scaled
     R, N, S = frame_b.shape
     frames = gather_frames(frame_b, chain_seg_map)
     static_exp = torch.exp(static_bank)
     if frame_b.device.type == 'cuda':
-        alphas_b, betas_b = fb_grouped_cuda(
+        launch = fb_grouped_scaled_cuda if scaled else fb_grouped_cuda
+        alphas_b, betas_b = launch(
             frames.contiguous(), static_exp.contiguous(),
             be_exp_b.contiguous(), chain_bank_idx.to(torch.int32).contiguous())
     elif frame_b.device.type == 'cpu':
-        alphas_b, betas_b = fb_grouped_reference(
-            frames, static_exp, be_exp_b, chain_bank_idx)
+        plain = (fb_grouped_scaled_reference if scaled
+                 else fb_grouped_reference)
+        alphas_b, betas_b = plain(frames, static_exp, be_exp_b,
+                                  chain_bank_idx)
     else:
         raise ValueError('unsupported device {}'.format(frame_b.device))
     return _scatter_and_norm(alphas_b, betas_b, chain_seg_map, chain_last, N)

@@ -87,3 +87,19 @@ def test_single_restart_fit_without_device_raises_without_cuda(monkeypatch):
         pipeline.fit(experiment, init, {})
     with pytest.raises(RuntimeError, match='CUDA'):
         pipeline.fit_many(experiment, {0: init}, {})
+
+
+def test_model_spec_without_device_raises_without_cuda(monkeypatch):
+    from remixt_tpu_torch.models import engine
+
+    from helpers import make_problem
+
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    prob = make_problem(seed=0, N=12, M=2, cn_max=2, num_breakpoints=2)
+    kwargs = {k: prob[k] for k in (
+        'cn_states', 'brk_states', 'l', 'x', 'y', 'is_telomere',
+        'breakpoint_idx', 'breakpoint_orient', 'transition_penalty',
+        'normal_contamination')}
+    with pytest.raises(RuntimeError, match='CUDA'):
+        engine.ModelSpec(**kwargs)
+    assert engine.ModelSpec(device='cpu', **kwargs).device.type == 'cpu'
