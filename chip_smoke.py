@@ -11,15 +11,18 @@ Phases, in order; any failure exits non-zero:
    prints the build time.
 2. Kernel vs plain, restart-batched: the whole-genome problem (N=6000
    segments at 500 kb, M=3 clones, max copy number 12 → S=355 states, 300
-   events, 23 chains) with one wave of R=8 restarts. One forward-backward
-   through the ``fb_grouped`` kernel and one through its plain PyTorch
-   version, both on the card in float32, compared on entries within 60
-   nats of their row maximum at atol 2e-4 / rtol 1e-5 and on log_norm at
-   rtol 1e-5. Times both.
+   events, 23 chains) with one wave of R=8 restarts. Forward-backward
+   through the ``fb_grouped`` kernel at each cluster size in ``CLUSTERS``
+   and once through its plain PyTorch version, all on the card in
+   float32, compared on entries within 60 nats of their row maximum at
+   atol 2e-4 / rtol 1e-5 and on log_norm at rtol 1e-5. Times each, prints
+   the bound beside the design's floor (the breakend bank read once per
+   direction), and times the kernel once more with its breakend steps
+   made static.
 2b. Kernel vs plain, one restart: the same problem with restart 0's state
    through the ``fb_chains`` kernel (each cluster size built) and its plain
-   version, at the same tolerances; times both, and ``fb_grouped`` on the
-   same inputs at R=1.
+   version, at the same tolerances; times both, and ``fb_grouped`` (at its
+   default cluster size) on the same inputs at R=1.
 2c. The scaled-linear kernel, restart-batched: phase 2's inputs through
    ``fb_grouped_scaled`` and its plain version, at phase 2's tolerances;
    times both, and prints the posterior max-abs-diff against the log-space
@@ -251,37 +254,59 @@ def posterior_diff(spec, messages, reference):
 
 
 def phase_kernel(inputs):
-    """The kernel against its plain version at the main path's shapes."""
+    """The kernel against its plain version at the main path's shapes, at
+    each cluster size; also the kernel with every breakend step turned into
+    a static one, which shows what reading the per-restart bank costs."""
     import torch
     from remixt_tpu_torch.ops import fb_grouped
 
     spec, frames, static_exp, be_exp_b, cbi = inputs
     log('phase 2: N={} S={} M={} K={} J={} Q={} L={} R={}'.format(
         spec.N, spec.S, spec.M, spec.K, spec.J, spec.Q, spec.L, WAVE))
+    num_static = static_exp.shape[0]
+    static_only = torch.where(cbi >= num_static,
+                              torch.full_like(cbi, num_static - 1), cbi)
     with torch.no_grad():
-        a_k, b_k = fb_grouped.fb_grouped_cuda(frames, static_exp, be_exp_b,
-                                              cbi)
-        torch.cuda.synchronize()
         a_p, b_p = fb_grouped.fb_grouped_reference(frames, static_exp,
                                                    be_exp_b, cbi)
         torch.cuda.synchronize()
-        max_err = check_messages(((a_k, a_p), (b_k, b_p)))
-        check_log_norm(spec, (a_k, b_k), (a_p, b_p))
+        cluster_ms, messages, max_err = {}, {}, 0.0
+        for cluster in CLUSTERS:
+            a_k, b_k = messages[cluster] = fb_grouped.fb_grouped_cuda(
+                frames, static_exp, be_exp_b, cbi, cluster=cluster)
+            torch.cuda.synchronize()
+            max_err = max(max_err, check_messages(((a_k, a_p), (b_k, b_p))))
+            check_log_norm(spec, (a_k, b_k), (a_p, b_p))
+            cluster_ms[cluster] = cuda_ms(
+                lambda: fb_grouped.fb_grouped_cuda(
+                    frames, static_exp, be_exp_b, cbi, cluster=cluster),
+                reps=7)
         del a_p, b_p
-
-        ms = cuda_ms(lambda: fb_grouped.fb_grouped_cuda(
-            frames, static_exp, be_exp_b, cbi), reps=7)
         plain_ms = cuda_ms(lambda: fb_grouped.fb_grouped_reference(
             frames, static_exp, be_exp_b, cbi), reps=5)
+        static_ms = cuda_ms(lambda: fb_grouped.fb_grouped_cuda(
+            frames, static_exp, be_exp_b, static_only), reps=7)
 
     bound_ms, bound_by, _, _, nbytes, flops = bound(
-        spec, WAVE, (frames, static_exp, be_exp_b, cbi), (a_k, b_k))
-    log('phase 2: kernel {:.3f} ms, plain {:.3f} ms, bound {:.3f} ms ({}; '
-        '{:.3f} GB, {:.3f} GFLOP), max abs diff {:.3e}, J={}'.format(
-            ms, plain_ms, bound_ms, bound_by, nbytes / 1e9, flops / 1e9,
-            max_err, be_exp_b.shape[1]))
-    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by), (a_k, b_k)
+        spec, WAVE, (frames, static_exp, be_exp_b, cbi), messages[CLUSTERS[0]])
+    # the design reads the bank once per direction
+    floor_bytes = nbytes + 4 * be_exp_b.numel()
+    breakend_steps = (cbi[:, :spec.L - 1] >= num_static).sum(dim=1)
+    log('phase 2: fb_grouped ms by cluster size {}; plain {:.3f} ms; max abs '
+        'diff {:.3e}, J={}'.format(
+            json.dumps({c: round(t, 4) for c, t in cluster_ms.items()}),
+            plain_ms, max_err, be_exp_b.shape[1]))
+    log('phase 2: bound {:.3f} ms ({}; {:.3f} GB, {:.3f} GFLOP); the '
+        'design\'s floor, the bank once per direction: {:.3f} GB = {:.3f} ms'
+        .format(bound_ms, bound_by, nbytes / 1e9, flops / 1e9,
+                floor_bytes / 1e9, 1e3 * floor_bytes / PEAK_BYTES_PER_S))
+    log('phase 2: with its {} breakend steps (at most {} of a chain\'s {}) '
+        'made static (cluster size {}): {:.3f} ms'.format(
+            int(breakend_steps.sum()), int(breakend_steps.max()), spec.L - 1,
+            fb_grouped.CLUSTER, static_ms))
+    return dict(max_abs_err=max_err, ms=cluster_ms[fb_grouped.CLUSTER],
+                plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by), messages[fb_grouped.CLUSTER]
 
 
 def phase_kernel_chains(inputs):

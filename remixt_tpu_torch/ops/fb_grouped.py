@@ -4,8 +4,12 @@ version and the wrapper that picks between them by device.
 Counterpart of ``forward_backward_chains_pallas_grouped``
 (``remixt_tpu/ops/fb_pallas.py:1159``), whose TPU kernel is
 ``_fb_kernel_grouped`` (``fb_pallas.py:744``). The CUDA kernel is
-``csrc/fb_grouped.cu``; its header says how it is laid out and what bounds
-it. Contract, for R restarts, Q chains of L positions and S states:
+``csrc/fb_grouped.cu``: one thread block cluster per (chain, direction,
+tile of 8 restarts), which reads each static class matrix once per step
+for the whole tile; its header says how it is laid out and what bounds it.
+``fb_grouped_cuda`` takes ``cluster=`` (1 to 8 blocks; ``CLUSTER`` on the
+main path) as ``fb_chains_cuda`` does, and ``launch_plan`` sizes its
+blocks. Contract, for R restarts, Q chains of L positions and S states:
 
 * ``frame_b`` (R, N, S) per-restart emission log probabilities;
 * ``static_bank`` (num_static, S, S) transition log-weights shared by all
@@ -49,6 +53,14 @@ SCALED_LINEAR = os.environ.get('REMIXT_TPU_SCALED_LINEAR', '0') == '1'
 #: launches of the CUDA kernels (one launch runs both directions)
 LAUNCHES = 0
 LAUNCHES_SCALED = 0
+
+#: thread blocks per (chain, direction, restart tile) cluster of the
+#: log-space kernel on the main path
+CLUSTER = 4
+#: restarts per tile of the log-space kernel (``RT`` in the source)
+RESTART_TILE = 8
+#: dynamic shared memory one block may take on the card (227 KB)
+SMEM_LIMIT = 232448
 
 
 def gather_frames(frame_b, chain_seg_map):
@@ -170,7 +182,58 @@ def fb_grouped_scaled_reference(frames, static_exp, be_exp_b, chain_bank_idx):
 
 
 def _launch_threads(S):
+    """Threads per block of the scaled kernel: one block per lane."""
     return min(1024, max(32, -(-S // 32) * 32))
+
+
+def tile_base_floats(S, per):
+    """Shared memory of the log-space kernel before its partial sums, in
+    floats, as ``tile_base_floats`` of ``csrc/fb_grouped.cu`` counts it:
+    the exchanged vectors (2 x S x RT), the carry and the double-buffered
+    frame slices (3 x RT x per), the peers' (max, sum) (2 x 8 x RT x 2),
+    each restart's maximum and sum (2 x RT), the staged classes (2)."""
+    tile = RESTART_TILE
+    return 2 * S * tile + 3 * tile * per + 32 * tile + 2 * tile + 2
+
+
+def launch_plan(R, S, cluster):
+    """Grid and block of the log-space kernel for R restarts of S states on
+    clusters of ``cluster`` blocks: ``tiles`` of ``RESTART_TILE`` restarts
+    (the grid is cluster × Q × 2·tiles), ``threads`` a block and
+    ``smem_bytes`` of dynamic shared memory. Each block owns ``per``
+    states, a multiple of 4 (the static product reads 4 columns at once).
+    Threads: whole warps over the slice, times as many row groups as give
+    the cluster about 2048 threads (as ``fb_chains``), and at least one
+    warp per restart of a tile where a block can hold them. The static
+    product's partial sums take as many of its row groups
+    (``static_groups``) as fit in ``SMEM_LIMIT``."""
+    tile = RESTART_TILE
+    per = -(-S // cluster) + 3 & ~3
+    span = -(-per // 32) * 32
+    rows = max(1, 2048 // cluster // span, -(-tile * 32 // span))
+    threads = min(1024, span * rows)
+    base = tile_base_floats(S, per)
+    groups = min(threads // (per // 4), S)
+    # red: the breakend and the static products' partial sums
+    red = min(max(tile * threads, groups * tile * per),
+              SMEM_LIMIT // 4 - base)
+    groups = min(groups, red // (tile * per))
+    if red < tile * threads or groups < 1:
+        raise ValueError('{} states do not fit the kernel\'s shared memory '
+                         'on clusters of {}'.format(S, cluster))
+    return dict(tiles=-(-R // tile), threads=threads, per=per,
+                static_groups=groups, smem_bytes=4 * (base + red))
+
+
+def pad_statics(static_exp):
+    """The static product's input: the static class matrices and their
+    transposes, (2, num_static, S, Sp), rows zero-padded to Sp, a multiple
+    of 4 floats."""
+    n, S, _ = static_exp.shape
+    statics = static_exp.new_zeros((2, n, S, -(-S // 4) * 4))
+    statics[0, :, :, :S] = static_exp
+    statics[1, :, :, :S] = static_exp.transpose(1, 2)
+    return statics
 
 
 def check_inputs(frames, static_exp, be_exp, chain_bank_idx):
@@ -213,8 +276,13 @@ def load_launcher(unit, entry, num_ptrs, num_ints):
     return fn, err_string
 
 
-def _launch(scaled, frames, static_exp, be_exp_b, chain_bank_idx):
+def _launch(scaled, frames, static_exp, be_exp_b, chain_bank_idx,
+            cluster=None):
     global LAUNCHES, LAUNCHES_SCALED
+    if not scaled:
+        cluster = CLUSTER if cluster is None else int(cluster)
+        if not 1 <= cluster <= 8:
+            raise ValueError('cluster must be 1 to 8, got {}'.format(cluster))
     R, Q, L, S = frames.shape
     check_inputs(frames, static_exp, be_exp_b, chain_bank_idx)
     J = be_exp_b.shape[1]
@@ -225,20 +293,25 @@ def _launch(scaled, frames, static_exp, be_exp_b, chain_bank_idx):
         fn, err_string = load_launcher('fb_grouped', 'fb_grouped_scaled_launch',
                                        7, 8)
         fexp, fmax = shift_frames(frames)
-        frame_ptrs = (fexp.data_ptr(), fmax.data_ptr())
+        inputs = (fexp.data_ptr(), fmax.data_ptr(), static_exp.data_ptr())
+        block = (_launch_threads(S),)
     else:
-        fn, err_string = load_launcher('fb_grouped', 'fb_grouped_launch', 6, 8)
-        frame_ptrs = (frames.data_ptr(),)
+        fn, err_string = load_launcher('fb_grouped', 'fb_grouped_launch', 6,
+                                       10)
+        statics = pad_statics(static_exp)
+        inputs = (frames.data_ptr(), statics.data_ptr())
+        plan = launch_plan(R, S, cluster)
+        block = (cluster, plan['threads'], plan['smem_bytes'])
     # a breakend-free problem still needs a valid pointer
     be = be_exp_b if J else frames.new_zeros(1)
     alphas = torch.empty_like(frames)
     betas = torch.empty_like(frames)
     stream = torch.cuda.current_stream(frames.device).cuda_stream
     with torch.cuda.device(frames.device):
-        err = fn(*frame_ptrs, static_exp.data_ptr(), be.data_ptr(),
+        err = fn(*inputs, be.data_ptr(),
                  chain_bank_idx.data_ptr(), alphas.data_ptr(),
                  betas.data_ptr(), R, Q, L, S, chain_bank_idx.shape[1],
-                 static_exp.shape[0], J, _launch_threads(S), stream)
+                 static_exp.shape[0], J, *block, stream)
     if err != 0:
         raise RuntimeError('fb_grouped{} kernel launch failed: {}'.format(
             '_scaled' if scaled else '', err_string(err).decode()))
@@ -249,10 +322,15 @@ def _launch(scaled, frames, static_exp, be_exp_b, chain_bank_idx):
     return alphas, betas
 
 
-def fb_grouped_cuda(frames, static_exp, be_exp_b, chain_bank_idx):
+def fb_grouped_cuda(frames, static_exp, be_exp_b, chain_bank_idx,
+                    cluster=None):
     """Launch the CUDA kernel on chain-major inputs; same contract as
-    :func:`fb_grouped_reference`. Raises on anything it cannot serve."""
-    return _launch(False, frames, static_exp, be_exp_b, chain_bank_idx)
+    :func:`fb_grouped_reference`. ``cluster`` blocks (1 to 8; ``None``
+    means ``CLUSTER``) share each (chain, direction, restart tile). Raises
+    on anything it cannot serve, a cluster launch the card refuses
+    included."""
+    return _launch(False, frames, static_exp, be_exp_b, chain_bank_idx,
+                   cluster)
 
 
 def fb_grouped_scaled_cuda(frames, static_exp, be_exp_b, chain_bank_idx):

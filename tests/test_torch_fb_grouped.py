@@ -6,14 +6,18 @@
     the tolerance the JAX package holds that kernel to;
 (b) its plain version in float64 against the JAX restart-batched scan;
 (c) the wrapper takes the plain version for CPU tensors, and the module
-    imports without nvcc or a GPU.
+    imports without nvcc or a GPU;
+(d) the CUDA route checks its inputs before it loads a library, and the
+    launch plan fits the card and matches the kernel source's layout.
 
 The CUDA kernel itself is held against the plain version on the card by
 ``chip_smoke.py``.
 """
 
+import re
 import subprocess
 import sys
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -30,6 +34,7 @@ from test_fb_pallas import build_problem, exp_pad
 torch.set_num_threads(1)
 
 R = 3
+CSRC = Path(fb_grouped.__file__).resolve().parent.parent / 'csrc'
 
 
 def restart_problem(seed, chain_lengths, be_frac):
@@ -134,11 +139,93 @@ def test_module_imports_without_nvcc_or_gpu():
                    env={'PYTHONPATH': ':'.join(sys.path)})
 
 
-def test_cuda_path_checks_its_inputs():
-    """The kernel route validates dtype and shape before touching the
-    library (and so raises here, where no kernel can be built)."""
-    frames = torch.zeros((1, 1, 2, 3), dtype=torch.float64)
+@pytest.mark.parametrize('bad', ['dtype', 'shape', 'bank_steps',
+                                 'cluster', 'no_cluster'])
+def test_cuda_path_checks_its_inputs(bad):
+    """The kernel route validates its inputs and the cluster size before
+    touching the library (and so raises here, where no kernel can be
+    built)."""
+    frames = torch.zeros((2, 2, 4, 3))
+    static_exp = torch.zeros((1, 3, 3))
+    be_exp = torch.zeros((2, 0, 3, 3))
+    cbi = torch.zeros((2, 3), dtype=torch.int32)
+    kwargs = {}
+    if bad == 'dtype':
+        frames = frames.double()
+    elif bad == 'shape':
+        be_exp = torch.zeros((2, 1, 3, 4))
+    elif bad == 'bank_steps':
+        cbi = torch.zeros((2, 2), dtype=torch.int32)
+    else:
+        kwargs['cluster'] = 16 if bad == 'cluster' else 0
     with pytest.raises(ValueError):
-        fb_grouped.fb_grouped_cuda(
-            frames, torch.zeros((1, 3, 3)), torch.zeros((1, 0, 3, 3)),
-            torch.zeros((1, 1), dtype=torch.int32))
+        fb_grouped.fb_grouped_cuda(frames, static_exp, be_exp, cbi, **kwargs)
+
+
+@pytest.mark.parametrize('cluster', [1, 4, 8])
+@pytest.mark.parametrize('S', [6, 355, 1000])
+def test_launch_plan_fits_the_card(S, cluster):
+    """Restart tiles, whole warps of at most 1024 threads that cover a
+    block's column slice, slices of whole quads that share the S states
+    out over the cluster's blocks, and shared memory within a block's 227
+    KB, for every wave size."""
+    for R in (1, 4, 8, 9):
+        plan = fb_grouped.launch_plan(R, S, cluster)
+        assert plan['tiles'] == -(-R // 8)
+        threads, per = plan['threads'], plan['per']
+        assert threads % 32 == 0 and threads <= 1024
+        # the least multiple of 4 that shares the S states out
+        assert per % 4 == 0 and per - 4 < S / cluster <= per
+        assert threads >= -(-per // 32) * 32
+        assert 1 <= plan['static_groups'] <= threads // (per // 4)
+        assert plan['smem_bytes'] <= 227 * 1024
+    if S == 355 and cluster == 4:
+        # the main path: two blocks a multiprocessor, so that all 46
+        # clusters of the whole-genome problem are resident at once
+        assert 2 * plan['smem_bytes'] <= 228 * 1024
+        assert 2 * threads * 64 <= 65536
+
+
+def c_expression(source, pattern):
+    """The integer C expression that ``pattern`` captures in the kernel
+    source, as Python: casts dropped, ``/`` as floor division."""
+    expr = re.search(pattern, source).group(1)
+    expr = re.sub(r'\((?:int|size_t)\)', '', expr).replace('/', '//')
+    return '({})'.format(expr)
+
+
+@pytest.mark.parametrize('cluster', [1, 4, 8])
+@pytest.mark.parametrize('S', [6, 355, 1000])
+def test_launch_plan_matches_the_kernel_source(S, cluster):
+    """The Python plan and the CUDA launcher lay shared memory out alike:
+    the restart tile, the block's slice, the floats before the partial
+    sums and the static product's row groups, the launcher's own formulas
+    evaluated from ``csrc/fb_grouped.cu``."""
+    source = (CSRC / 'fb_grouped.cu').read_text()
+    consts = {name: int(value) for name, value in
+              re.findall(r'constexpr int (\w+) = (\d+);', source)}
+    assert consts['RT'] == fb_grouped.RESTART_TILE
+    plan = fb_grouped.launch_plan(8, S, cluster)
+    env = dict(consts, S=S, cluster=cluster, min=min)
+    assert eval(c_expression(source, r'const int per = ([^;]*);'),
+                env) == plan['per']
+    env['per'] = plan['per']
+    base = eval(c_expression(
+        source, r'size_t tile_base_floats\(int S, int per\) \{\s*return '
+        r'([^;]*);'), env)
+    assert base == fb_grouped.tile_base_floats(S, plan['per'])
+    red = plan['smem_bytes'] // 4 - base
+    assert red >= consts['RT'] * max(plan['threads'], plan['per'])
+    env.update(threads=plan['threads'], red=red)
+    assert eval(c_expression(source, r'const int SG = ([^;]*);'),
+                env) == plan['static_groups']
+
+
+def test_padded_statics_hold_the_matrices_and_their_transposes():
+    rng = np.random.RandomState(3)
+    static_exp = torch.as_tensor(rng.rand(3, 7, 7))
+    statics = fb_grouped.pad_statics(static_exp)
+    assert statics.shape == (2, 3, 7, 8) and statics.is_contiguous()
+    assert torch.equal(statics[0, :, :, :7], static_exp)
+    assert torch.equal(statics[1, :, :, :7], static_exp.transpose(1, 2))
+    assert not statics[..., 7:].any()
