@@ -24,11 +24,14 @@ Phases, in order; any failure exits non-zero:
    version, at the same tolerances; times both, and ``fb_grouped`` (at its
    default cluster size) on the same inputs at R=1.
 2c. The scaled-linear kernel, restart-batched: phase 2's inputs through
-   ``fb_grouped_scaled`` and its plain version, at phase 2's tolerances;
-   times both, and prints the posterior max-abs-diff against the log-space
-   ``fb_grouped`` on the same inputs (≤ 1e-3).
+   ``fb_grouped_scaled`` at each cluster size in ``CLUSTERS`` and its
+   plain version, at phase 2's tolerances; its posteriors within 1e-3 of
+   the log-space ``fb_grouped``'s on the same inputs, and two launches on
+   the same inputs bit-identical. Times each, prints the bound beside the
+   design's floor, and times the kernel with its breakend steps made
+   static, as phase 2 does.
 2d. The same for ``fb_chains_scaled`` on phase 2b's inputs, at the
-   default cluster size.
+   default cluster size, without the made-static probe.
 3. The batched path at full width: ``analysis.pipeline.fit_many`` on that
    experiment with the 8 restarts, 2 EM iterations × 2 VI sweeps (the one
    cut: the defaults are 5 × 5). Checks finite ELBOs, the decoded copy
@@ -46,7 +49,11 @@ Phases, in order; any failure exits non-zero:
    2 EM × 2 VI. Checks finite ELBOs, the copy number's shape, and that every
    chain forward-backward went through the ``fb_chains`` kernel; reports its
    stage times and, per restart, the share of segments whose decoded copy
-   number equals phase 3's.
+   number equals phase 3's. Then fits restart 0 twice more, as it was and
+   under ``torch.use_deterministic_algorithms(True, warn_only=True)``, and
+   prints the max abs difference of h, ELBO and posteriors of each from
+   the first fit, and the ops torch names as nondeterministic; this only
+   reports.
 7. Both paths with the scaled-linear switch on (``fb_grouped.SCALED_LINEAR``,
    the ``REMIXT_TPU_SCALED_LINEAR=1`` of the JAX package): phase 3's wave
    through the batched ``fit_many`` and restart 0 through the sequential
@@ -253,6 +260,29 @@ def posterior_diff(spec, messages, reference):
     return float((post[0] - post[1]).abs().max())
 
 
+def made_static(cbi, num_static):
+    """The schedule with every breakend step turned into the last static
+    class: a kernel timed on it shows what reading the bank costs."""
+    import torch
+    return torch.where(cbi >= num_static,
+                       torch.full_like(cbi, num_static - 1), cbi)
+
+
+def log_floor(label, spec, cbi, num_static, be_exp_b, nbytes, static_ms,
+              cluster):
+    """The design's floor, the breakend bank read once per direction, and
+    the made-static probe's time."""
+    floor_bytes = nbytes + 4 * be_exp_b.numel()
+    breakend_steps = (cbi[:, :spec.L - 1] >= num_static).sum(dim=1)
+    log('{}: the design\'s floor, the bank once per direction: {:.3f} GB = '
+        '{:.3f} ms'.format(label, floor_bytes / 1e9,
+                           1e3 * floor_bytes / PEAK_BYTES_PER_S))
+    log('{}: with its {} breakend steps (at most {} of a chain\'s {}) made '
+        'static (cluster size {}): {:.3f} ms'.format(
+            label, int(breakend_steps.sum()), int(breakend_steps.max()),
+            spec.L - 1, cluster, static_ms))
+
+
 def phase_kernel(inputs):
     """The kernel against its plain version at the main path's shapes, at
     each cluster size; also the kernel with every breakend step turned into
@@ -264,8 +294,7 @@ def phase_kernel(inputs):
     log('phase 2: N={} S={} M={} K={} J={} Q={} L={} R={}'.format(
         spec.N, spec.S, spec.M, spec.K, spec.J, spec.Q, spec.L, WAVE))
     num_static = static_exp.shape[0]
-    static_only = torch.where(cbi >= num_static,
-                              torch.full_like(cbi, num_static - 1), cbi)
+    static_only = made_static(cbi, num_static)
     with torch.no_grad():
         a_p, b_p = fb_grouped.fb_grouped_reference(frames, static_exp,
                                                    be_exp_b, cbi)
@@ -289,21 +318,14 @@ def phase_kernel(inputs):
 
     bound_ms, bound_by, _, _, nbytes, flops = bound(
         spec, WAVE, (frames, static_exp, be_exp_b, cbi), messages[CLUSTERS[0]])
-    # the design reads the bank once per direction
-    floor_bytes = nbytes + 4 * be_exp_b.numel()
-    breakend_steps = (cbi[:, :spec.L - 1] >= num_static).sum(dim=1)
     log('phase 2: fb_grouped ms by cluster size {}; plain {:.3f} ms; max abs '
         'diff {:.3e}, J={}'.format(
             json.dumps({c: round(t, 4) for c, t in cluster_ms.items()}),
             plain_ms, max_err, be_exp_b.shape[1]))
-    log('phase 2: bound {:.3f} ms ({}; {:.3f} GB, {:.3f} GFLOP); the '
-        'design\'s floor, the bank once per direction: {:.3f} GB = {:.3f} ms'
-        .format(bound_ms, bound_by, nbytes / 1e9, flops / 1e9,
-                floor_bytes / 1e9, 1e3 * floor_bytes / PEAK_BYTES_PER_S))
-    log('phase 2: with its {} breakend steps (at most {} of a chain\'s {}) '
-        'made static (cluster size {}): {:.3f} ms'.format(
-            int(breakend_steps.sum()), int(breakend_steps.max()), spec.L - 1,
-            fb_grouped.CLUSTER, static_ms))
+    log('phase 2: bound {:.3f} ms ({}; {:.3f} GB, {:.3f} GFLOP)'.format(
+        bound_ms, bound_by, nbytes / 1e9, flops / 1e9))
+    log_floor('phase 2', spec, cbi, num_static, be_exp_b, nbytes, static_ms,
+              fb_grouped.CLUSTER)
     return dict(max_abs_err=max_err, ms=cluster_ms[fb_grouped.CLUSTER],
                 plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by), messages[fb_grouped.CLUSTER]
@@ -354,11 +376,16 @@ def phase_kernel_chains(inputs):
                 bound_by=bound_by), messages[fb_chains.CLUSTER]
 
 
-def phase_kernel_scaled(label, inputs, kernel, plain, log_space):
+def phase_kernel_scaled(label, inputs, kernel, plain, log_space, main,
+                        clusters, probe=False):
     """A scaled kernel against its plain version on ``inputs`` (R, Q, L, S
-    with R = 1 dropped for the single-restart kernel); also its posteriors
+    with R = 1 dropped for the single-restart kernel) at each cluster size
+    in ``clusters``; its time is the main path's cluster size ``main``'s.
+    Also its posteriors
     against the log-space kernel's ``log_space`` messages on the same
-    inputs, ≤ 1e-3."""
+    inputs, ≤ 1e-3, and two launches on the same inputs, bit-identical.
+    With ``probe``, also the made-static probe and the design's floor, as
+    phase 2 prints them."""
     import torch
     from remixt_tpu_torch.ops import fb_grouped
 
@@ -366,35 +393,56 @@ def phase_kernel_scaled(label, inputs, kernel, plain, log_space):
     R = frames.shape[0] if frames.dim() == 4 else 1
     batch = (lambda m: m) if frames.dim() == 4 else (
         lambda m: tuple(x[None] for x in m))
+    cluster_ms, max_err, post_diff = {}, 0.0, 0.0
     with torch.no_grad():
-        k = kernel(frames, static_exp, be_exp, cbi)
-        torch.cuda.synchronize()
         p = plain(frames, static_exp, be_exp, cbi)
         torch.cuda.synchronize()
-        max_err = check_messages(zip(k, p))
-        check_log_norm(spec, batch(k), batch(p))
+        for cluster in clusters:
+            k = kernel(frames, static_exp, be_exp, cbi, cluster=cluster)
+            again = kernel(frames, static_exp, be_exp, cbi, cluster=cluster)
+            torch.cuda.synchronize()
+            if not all(torch.equal(x, y) for x, y in zip(k, again)):
+                raise AssertionError('{}: two launches at cluster size {} '
+                                     'differ'.format(label, cluster))
+            del again
+            max_err = max(max_err, check_messages(zip(k, p)))
+            check_log_norm(spec, batch(k), batch(p))
+            post_diff = max(post_diff, posterior_diff(spec, batch(k),
+                                                      batch(log_space)))
+            if not post_diff <= 1e-3:
+                raise AssertionError('{}: posteriors differ from the '
+                                     'log-space kernel\'s by {}'.format(
+                                         label, post_diff))
+            cluster_ms[cluster] = cuda_ms(
+                lambda: kernel(frames, static_exp, be_exp, cbi,
+                               cluster=cluster), reps=7)
         del p
-        post_diff = posterior_diff(spec, batch(k), batch(log_space))
-        if not post_diff <= 1e-3:
-            raise AssertionError('{}: posteriors differ from the log-space '
-                                 'kernel\'s by {}'.format(label, post_diff))
-        ms = cuda_ms(lambda: kernel(frames, static_exp, be_exp, cbi), reps=7)
         plain_ms = cuda_ms(lambda: plain(frames, static_exp, be_exp, cbi),
                            reps=5)
         shift_ms = cuda_ms(lambda: fb_grouped.shift_frames(frames), reps=7)
+        if probe:
+            static_only = made_static(cbi, static_exp.shape[0])
+            static_ms = cuda_ms(lambda: kernel(
+                frames, static_exp, be_exp, static_only, cluster=main),
+                reps=7)
         fexp, fmax = fb_grouped.shift_frames(frames)
 
     bound_ms, bound_by, bytes_ms, flops_ms, nbytes, flops = bound(
         spec, R, (fexp, fmax, static_exp, be_exp, cbi), k)
-    log('{}: kernel {:.3f} ms (of it the frame shift in torch {:.3f} ms), '
-        'plain {:.3f} ms, max abs diff {:.3e}'.format(
-            label, ms, shift_ms, plain_ms, max_err))
+    log('{}: kernel ms by cluster size {} (each with the frame shift in '
+        'torch, {:.3f} ms), plain {:.3f} ms, max abs diff {:.3e}; two '
+        'launches bit-identical at each'.format(
+            label, json.dumps({c: round(t, 4) for c, t in cluster_ms.items()}),
+            shift_ms, plain_ms, max_err))
     log('{}: bound {:.4f} ms ({}): bytes {:.4f} GB = {:.4f} ms, fp32 {:.3f} '
         'GFLOP = {:.4f} ms; posterior max abs diff vs the log-space kernel '
         '{:.3e}'.format(label, bound_ms, bound_by, nbytes / 1e9, bytes_ms,
                         flops / 1e9, flops_ms, post_diff))
-    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+    if probe:
+        log_floor(label, spec, cbi, static_exp.shape[0], be_exp, nbytes,
+                  static_ms, main)
+    return dict(max_abs_err=max_err, ms=cluster_ms[main],
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 
 @contextlib.contextmanager
@@ -427,8 +475,9 @@ def reset_chain_launches():
 def timed_fit(data, num_restarts, batched):
     """``fit_many`` over the first ``num_restarts`` of phase 3's grid,
     batched or one restart at a time, 2 EM × 2 VI, with per-stage wall
-    times. Returns the results, the stages, the wall time and the chain
-    kernels' launches during the fit."""
+    times. Returns the results, each with its segment posteriors under
+    ``'posteriors'``, the stages, the wall time and the chain kernels'
+    launches during the fit."""
     import torch
     from remixt_tpu_torch.analysis import pipeline
     from remixt_tpu_torch.models import em, engine as eng
@@ -440,7 +489,16 @@ def timed_fit(data, num_restarts, batched):
     e, m = ('_restarts', '_batched') if batched else ('', '')
     stages = {}
     timed = stage_timer(stages)
+    extract = pipeline._extract_results
+
+    def with_posteriors(model, *args):
+        out = extract(model, *args)
+        out['posteriors'] = model.state.posterior_marginals.cpu().numpy()
+        return out
+
+    pipeline._extract_results = with_posteriors
     originals = [
+        (pipeline, '_extract_results', extract),
         (eng, 'variational_sweeps' + e,
          timed(eng, 'variational_sweeps' + e, 'sweeps')),
         (eng, 'calculate_elbo' + e,
@@ -591,7 +649,42 @@ def phase_sequential_fit(data, batched_results):
     log('phase 6: share of segments whose cn equals the batched fit of '
         'phase 3, per restart: ' + json.dumps(same_cn(results,
                                                       batched_results)))
+    repeat_fit(data, results[0])
     return expected, results
+
+
+def repeat_fit(data, first):
+    """Restart 0 fitted twice more: as it was, and under torch's
+    deterministic algorithms with warnings only. Prints the max abs
+    difference of h, ELBO and posteriors of each from phase 6's fit, and
+    the ops that torch names as nondeterministic. Reports only; a
+    difference fails nothing."""
+    import warnings
+    import torch
+
+    def diff(again):
+        return {key: float(np.abs(np.asarray(pick(first))
+                                  - np.asarray(pick(again))).max())
+                for key, pick in (('h', lambda r: r['h']),
+                                  ('elbo', lambda r: r['stats']['elbo']),
+                                  ('posteriors', lambda r: r['posteriors']))}
+
+    log('phase 6: restart 0 fitted again: max abs diff from the first fit '
+        '{}'.format(json.dumps(diff(timed_fit(data, 1, batched=False)[0][0]))))
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter('always')
+            again = timed_fit(data, 1, batched=False)[0][0]
+    finally:
+        torch.use_deterministic_algorithms(False)
+    ops = sorted({str(w.message).split('. ')[0] for w in caught
+                  if 'deterministic' in str(w.message).lower()})
+    log('phase 6: restart 0 fitted again under torch.use_deterministic_'
+        'algorithms(True, warn_only=True): max abs diff from the first fit '
+        '{}'.format(json.dumps(diff(again))))
+    log('phase 6: ops torch names as nondeterministic in that fit: {}'.format(
+        json.dumps(ops) if ops else 'none'))
 
 
 def phase_scaled_fits(data, batched_results, sequential_results):
@@ -767,10 +860,12 @@ def main():
     chains, chains_messages = phase_kernel_chains(one)
     grouped_scaled = phase_kernel_scaled(
         'phase 2c', inputs, fb_grouped.fb_grouped_scaled_cuda,
-        fb_grouped.fb_grouped_scaled_reference, grouped_messages)
+        fb_grouped.fb_grouped_scaled_reference, grouped_messages,
+        fb_grouped.CLUSTER, CLUSTERS, probe=True)
     chains_scaled = phase_kernel_scaled(
         'phase 2d', one, fb_chains.fb_chains_scaled_cuda,
-        fb_chains.fb_chains_scaled_reference, chains_messages)
+        fb_chains.fb_chains_scaled_reference, chains_messages,
+        fb_chains.CLUSTER, (fb_chains.CLUSTER,))
     del inputs, one, frames, be_exp_b, grouped_messages, chains_messages
     grouped['launches'], batched_results = phase_fit(data)
     phase_small_f32_vs_f64()

@@ -66,24 +66,47 @@
 //
 // The scaled-linear variant, fb_grouped_scaled_kernel, replaces the TPU
 // kernel _fb_kernel_grouped_scaled (fb_pallas.py:911), the chain update of
-// the batched fit under REMIXT_TPU_SCALED_LINEAR=1. One thread block per
-// (restart, chain, direction), grid (R*Q, 2), which walks the chain in a
-// loop; it reads fexp = exp(frame - fmax) (R, Q, L, S) and fmax (R, Q, L),
-// made by the wrapper, and keeps the linear carry u in shared memory with
-// one float of log scale per block. Each step is
+// the batched fit under REMIXT_TPU_SCALED_LINEAR=1. It reads fexp =
+// exp(frame - fmax) (R, Q, L, S) and fmax (R, Q, L), made by the wrapper,
+// and keeps a linear input u per restart, normalised by its maximum, with
+// a log scale beside it. Each step is
 //   s = (u . M) * fexp[t] forward, s = M . (u * fexp[t]) reverse (the cut
 //   class sums), m = max(max(s), TINY), u = s / m, scale += log(m) + fmax[t],
-// and writes log(max(u, TINY)) + scale: the per-state expf/logf of the
-// carry become a block max and a multiply; the output's logf stays. Only
-// the output is floored, so states far below a lane's maximum differ from
-// the log-space kernel, which it matches within 60 nats of the row maximum.
-// Its bound at whole-genome width is the log-space one: fexp and fmax
-// replace the frames (0.2 MB more), 2.63 GB moved once, 0.785 ms at
-// 3.35 TB/s, above the fp32 24.4 GFLOP (0.364 ms at 67 TFLOP/s). It took
-// 8.49 ms, the frame shift in torch (0.15 ms) included, against 10.26 ms
-// for a log-space kernel of the same grid in the same run (chip_smoke.py
-// phase 2c, NVIDIA H100 80GB HBM3, 700 W): the same reads, without the
-// expf per state.
+// and writes log(max(u, TINY)) + scale: the per-state expf of the carry
+// becomes a multiply; the output's logf stays. Only the output is floored,
+// so states far below a lane's maximum differ from the log-space kernel,
+// which it matches within 60 nats of the row maximum.
+// Same grid, clusters, tiles, slices and products as fb_grouped_kernel;
+// only the exchange around the product differs. The normaliser m is the
+// maximum of the step's new product over all S states, known only after
+// the exchange, so a block publishes its slice of the product, not of its
+// input (as fb_chains_scaled_kernel does); still one cluster barrier a step:
+//   1. the product of the block's slice for all restarts of the tile
+//      (forward times its columns' fexp[t]; the cut class from the input's
+//      sum);
+//   2. the block writes the slice into every peer's next input tile ut
+//      (reverse: weighted by fexp of the output position t - 1, which the
+//      next product folds in) and each slice's (max, sum) into every
+//      peer's statistics;
+//   3. one cluster barrier;
+//   4. per restart, m = max(max_c m_c, TINY), the same in every block, so
+//      each keeps the same scale with no further exchange; the next input
+//      is rescaled by 1 / m in place before its product (the plain
+//      version's order: a product of raw s would fall into subnormals as m
+//      nears TINY), its sum is sum_c sum_c / m, and the block writes
+//      log(max(s_c / m, TINY)) + scale for its own states.
+// fexp slices, fmax and the class come a step ahead through cp.async.
+// No atomics, and every reduction has a fixed order, so two launches on
+// the same inputs give the same bits. Its bound at whole-genome width is
+// the log-space one: fexp and fmax replace the frames (0.2 MB more), 2.63
+// GB moved once, 0.785 ms at 3.35 TB/s, above the fp32 24.4 GFLOP (0.364
+// ms at 67 TFLOP/s). At C=4 it took 5.41-5.44 ms, the frame shift in torch
+// (0.16 ms) included, within 1.2 % of fb_grouped_kernel in the same run,
+// and 6.65-6.66 ms at C=8; 3.68-3.98 ms with every breakend step made
+// static. One block per (restart, chain, direction), which read every
+// static matrix once per restart, took 8.42-8.60 ms (chip_smoke.py phase
+// 2c, NVIDIA H100 80GB HBM3, 700 W). It is bound as fb_grouped_kernel is,
+// by the chain's serial steps and the breakend bank's reads.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -113,6 +136,13 @@ size_t tile_base_floats(int S, int per) {
       + 2 * RT + 2;
 }
 
+// fb_grouped_scaled_kernel's: the same, with slice for carry and total,
+// gscale, ginv and the staged fmax (5 x RT) for gmax and gsum (2 x RT);
+// ops/fb_grouped.py's scaled_base_floats counts the same.
+size_t scaled_base_floats(int S, int per) {
+  return tile_base_floats(S, per) + 3 * RT;
+}
+
 __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1)
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
@@ -123,81 +153,6 @@ __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1)
     v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
-}
-
-// Block-wide reductions; red holds 33 floats of shared memory. Every
-// thread of the block must call them. They end with a barrier so red can
-// be reused by the next reduction.
-__device__ float block_max(float v, float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  v = warp_max(v);
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    float x = lane < nwarps ? red[lane] : -INFINITY;
-    x = warp_max(x);
-    if (lane == 0) red[32] = x;
-  }
-  __syncthreads();
-  const float r = red[32];
-  __syncthreads();
-  return r;
-}
-
-__device__ float block_sum(float v, float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  v = warp_sum(v);
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    float x = lane < nwarps ? red[lane] : 0.f;
-    x = warp_sum(x);
-    if (lane == 0) red[32] = x;
-  }
-  __syncthreads();
-  const float r = red[32];
-  __syncthreads();
-  return r;
-}
-
-// u . M for the block's shared vector u, threads over the output columns
-// j (a warp reads a contiguous row segment of M): epi(j, s) per column.
-template <typename Epi>
-__device__ __forceinline__ void product_forward(const float* M,
-                                                const float* u, int S,
-                                                Epi epi) {
-  for (int j = threadIdx.x; j < S; j += blockDim.x) {
-    float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-    const float* col = M + j;
-    int i = 0;
-    for (; i + 3 < S; i += 4) {
-      a0 = fmaf(u[i], col[(size_t)i * S], a0);
-      a1 = fmaf(u[i + 1], col[(size_t)(i + 1) * S], a1);
-      a2 = fmaf(u[i + 2], col[(size_t)(i + 2) * S], a2);
-      a3 = fmaf(u[i + 3], col[(size_t)(i + 3) * S], a3);
-    }
-    for (; i < S; ++i) a0 = fmaf(u[i], col[(size_t)i * S], a0);
-    epi(j, (a0 + a1) + (a2 + a3));
-  }
-}
-
-// M . u, a warp per row i with a shuffle reduction (rows read
-// contiguously): lane 0 calls epi(i, s).
-template <typename Epi>
-__device__ __forceinline__ void product_reverse(const float* M,
-                                                const float* u, int S,
-                                                Epi epi) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nwarps = blockDim.x >> 5;
-  for (int i = warp; i < S; i += nwarps) {
-    const float* row = M + (size_t)i * S;
-    float s = 0.f;
-    for (int j = lane; j < S; j += 32) s = fmaf(row[j], u[j], s);
-    s = warp_sum(s);
-    if (lane == 0) epi(i, s);
-  }
 }
 
 // The RT vectors of a tile that one matrix entry meets: row i of the
@@ -242,6 +197,17 @@ __device__ __forceinline__ void copy_async(float* dst, const float* src) {
 
 __device__ __forceinline__ void copy_async_wait() {
   asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// The slices [0, n_own) of a row of each of the tile's nr restarts, restart
+// r's at src + r * rstride, copied into dst (RT x per) by cp.async.
+__device__ __forceinline__ void stage_slices(float* dst, const float* src,
+                                             size_t rstride, int n_own,
+                                             int per, int nr) {
+  for (int k = threadIdx.x; k < nr * n_own; k += blockDim.x) {
+    const int r = k / n_own, i = k % n_own;
+    copy_async(dst + r * per + i, src + r * rstride + i);
+  }
 }
 
 // The forward products' epilogue: epi(r, j, s) for each restart r < nr and
@@ -427,19 +393,11 @@ fb_grouped_kernel(const float* __restrict__ frames,
   const int G = max(1, nt / JW);
   const size_t SSp = (size_t)S * Sp;
 
-  // frame row t's slice of each restart, copied into fb (RT x per)
-  auto stage_frames = [&](int t, float* fb) {
-    for (int k = tid; k < nr * n_own; k += nt) {
-      const int r = k / n_own, i = k % n_own;
-      copy_async(fb + r * per + i,
-                 F + r * lane_stride + (size_t)t * S + lo + i);
-    }
-  };
-
   // the frames and class of the step at t, copied a step ahead into
   // shared memory buffer buf, so that no step waits for their loads
   auto stage = [&](int t, int buf) {
-    stage_frames(t, fbuf + buf * RT * per);
+    stage_slices(fbuf + buf * RT * per, F + (size_t)t * S + lo, lane_stride,
+                 n_own, per, nr);
     if (tid == 0)
       copy_async(reinterpret_cast<float*>(sched + buf),
                  reinterpret_cast<const float*>(bidx + t - 1));
@@ -572,139 +530,233 @@ fb_grouped_kernel(const float* __restrict__ frames,
 }
 
 // The scaled-linear kernel: fexp (R, Q, L, S) = exp(frame - fmax), fmax
-// (R, Q, L); static_exp (num_static, S, S), be_exp, cbi and the outputs as
-// fb_grouped_kernel's. Grid (R*Q, 2): a block per (restart, chain,
-// direction).
-__global__ void fb_grouped_scaled_kernel(const float* __restrict__ fexp,
-                                         const float* __restrict__ fmax,
-                                         const float* __restrict__ static_exp,
-                                         const float* __restrict__ be_exp,
-                                         const int* __restrict__ cbi,
-                                         float* __restrict__ alphas,
-                                         float* __restrict__ betas,
-                                         int Q, int L, int S, int Lm1,
-                                         int num_static, int J) {
-  extern __shared__ float smem[];
-  float* u = smem;           // the linear carry
-  float* s = smem + S;       // the step's product, before normalising
-  float* red = smem + 2 * S;
+// (R, Q, L); statics, be_exp, cbi, the outputs, grid, clusters and block
+// as fb_grouped_kernel's; dynamic shared memory scaled_base_floats(S, per)
+// floats and red as there.
+__global__ void __launch_bounds__(1024)
+fb_grouped_scaled_kernel(const float* __restrict__ fexp,
+                         const float* __restrict__ fmax,
+                         const float* __restrict__ statics,
+                         const float* __restrict__ be_exp,
+                         const int* __restrict__ cbi,
+                         float* __restrict__ alphas,
+                         float* __restrict__ betas,
+                         int R, int Q, int L, int S, int Sp, int Lm1,
+                         int num_static, int J, int per, int SG) {
+  extern __shared__ float4 smem_tile[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int q = blockIdx.y;
+  const bool reverse = blockIdx.z & 1;
+  const int r0 = (blockIdx.z >> 1) * RT;
+  const int nr = min(RT, R - r0);  // the tile's restarts; the rest masked
+  const int lo = rank * per;
+  const int n_own = max(0, min(per, S - lo));
 
-  const int lane_id = blockIdx.x;  // r * Q + q
-  const int r = lane_id / Q;
-  const int q = lane_id % Q;
-  const bool reverse = blockIdx.y == 1;
-  const size_t SS = (size_t)S * S;
-  const float* E = fexp + (size_t)lane_id * L * S;
-  const float* FM = fmax + (size_t)lane_id * L;
-  float* out = (reverse ? betas : alphas) + (size_t)lane_id * L * S;
+  // 2 x S x RT: each restart's product input, transposed (state i of
+  // restart r at i * RT + r), double-buffered; the peers write it
+  float* ut = reinterpret_cast<float*>(smem_tile);
+  float* slice = ut + (size_t)2 * S * RT;  // RT x per: the step's product
+  // 2 x RT x per: the staged fexp slices, forward of row t, reverse of the
+  // output row t - 1
+  float* fbuf = slice + RT * per;
+  // 2 x MAX_CLUSTER x RT x 2: every peer's (max, sum) of its slice
+  float* stat = fbuf + 2 * RT * per;
+  float* total = stat + 4 * MAX_CLUSTER * RT;  // RT: each input's sum
+  float* gscale = total + RT;                  // RT: each restart's scale
+  float* ginv = gscale + RT;                   // RT: 1 / its normaliser
+  float* mbuf = ginv + RT;                     // 2 x RT: the staged fmax
+  // 2: the staged class of a step, double-buffered
+  int* sched = reinterpret_cast<int*>(mbuf + 2 * RT);
+  float* red = mbuf + 2 * RT + 2;  // the products' partial sums
+
+  const size_t SS = (size_t)S * S, LS = (size_t)L * S;
+  const size_t lane_stride = (size_t)Q * LS;  // restart r to r + 1
+  const size_t bank_stride = (size_t)J * SS;
+  const size_t QL = (size_t)Q * L;
+  const float* E = fexp + ((size_t)r0 * Q + q) * LS;
+  const float* FM = fmax + ((size_t)r0 * Q + q) * L;
+  float* out = (reverse ? betas : alphas) + ((size_t)r0 * Q + q) * LS;
+  const float* bank = be_exp + (size_t)r0 * bank_stride;
   const int* bidx = cbi + (size_t)q * Lm1;
   const int tid = threadIdx.x, nt = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, nwarps = nt >> 5;
+  const int JW = ((per + 31) / 32) * 32;
+  const int G = max(1, nt / JW);
+  const size_t SSp = (size_t)S * Sp;
 
-  // forward starts from u = fexp[0] at scale fmax[0]; reverse from u = 1
-  // at scale 0, whose message is 0
-  float scale = reverse ? 0.f : FM[0];
-  for (int i = tid; i < S; i += nt) {
-    if (!reverse) {
-      const float e = E[i];
-      u[i] = e;
-      out[i] = logf(fmaxf(e, TINY)) + scale;
-    } else {
-      u[i] = 1.f;
-      out[(size_t)(L - 1) * S + i] = 0.f;
-    }
+  // the fexp slices, fmax and class of the step at t, copied a step ahead
+  // into shared memory buffer buf
+  auto stage = [&](int t, int buf) {
+    stage_slices(fbuf + buf * RT * per, E + (size_t)(reverse ? t - 1 : t) * S
+                 + lo, lane_stride, n_own, per, nr);
+    if (tid < nr) copy_async(mbuf + buf * RT + tid, FM + tid * QL + t);
+    if (tid == 0)
+      copy_async(reinterpret_cast<float*>(sched + buf),
+                 reinterpret_cast<const float*>(bidx + t - 1));
+  };
+  if (L > 1) stage(reverse ? L - 1 : 1, 1);
+  // the first input, step 1's: forward u = fexp[0] at scale fmax[0];
+  // reverse u = 1 at scale 0 (message 0), times fexp[L - 1]. The masked
+  // restarts' inputs stay zero: no peer writes them
+  const int t0 = reverse ? L - 1 : 0;
+  for (int k = tid; k < 2 * S * RT; k += nt)
+    if (k % RT >= nr) ut[k] = 0.f;
+  for (int k = tid; k < nr * S; k += nt) {
+    const int r = k / S, i = k % S;
+    ut[(size_t)(S + i) * RT + r] = E[r * lane_stride + (size_t)t0 * S + i];
   }
+  for (int k = tid; k < nr * n_own; k += nt) {
+    const int r = k / n_own, i = k % n_own;
+    const size_t at = r * lane_stride + (size_t)t0 * S + lo + i;
+    out[at] = reverse ? 0.f : logf(fmaxf(E[at], TINY)) + FM[r * QL];
+  }
+  for (int r = warp; r < nr; r += nwarps) {
+    const float* e = E + r * lane_stride + (size_t)t0 * S;
+    float s = 0.f;
+    for (int i = lane; i < S; i += 32) s += e[i];
+    s = warp_sum(s);
+    if (lane == 0) total[r] = s;
+  }
+  if (tid < nr) gscale[tid] = reverse ? 0.f : FM[tid * QL];
+  // every block of the cluster runs before a peer writes its shared memory
+  cluster.sync();
 
   for (int step = 1; step < L; ++step) {
+    // forward: pair (t-1, t) produces position t from frame t;
+    // reverse: pair (t-1, t) produces position t-1 from frame t
     const int t = reverse ? L - step : step;
-    const float* erow = E + (size_t)t * S;
-    float* dst = out + (size_t)(reverse ? t - 1 : t) * S;
-    __syncthreads();
-    if (reverse) {
-      for (int i = tid; i < S; i += nt) u[i] *= erow[i];
-      __syncthreads();
-    }
-    float m = 0.f;  // the products of non-negative weights are >= 0
-    const int b = bidx[t - 1];
+    const int buf = step & 1;
+    const float* my_ut = ut + (size_t)buf * S * RT;
+    float* next_ut = ut + (size_t)(buf ^ 1) * S * RT;
+    float* my_stat = stat + buf * MAX_CLUSTER * RT * 2;
+    const float* fr = fbuf + buf * RT * per;
+    const float* fm = mbuf + buf * RT;  // fmax[t]
+    copy_async_wait();
+    __syncthreads();  // the input is normalised, the step at t staged
+
+    const int b = sched[buf];
+    if (step + 1 < L) stage(reverse ? t - 1 : t + 1, buf ^ 1);
+
+    // 1. the block's slice of the product, forward times fexp[t]
+    auto epi = [&](int r, int i, float s) {
+      slice[r * per + i] = reverse ? s : s * fr[r * per + i];
+    };
     if (b == 0) {
-      float total = 0.f;
-      for (int i = tid; i < S; i += nt) total += u[i];
-      total = block_sum(total, red);
-      for (int j = tid; j < S; j += nt) {
-        const float v = reverse ? total : total * erow[j];
-        s[j] = v;
-        m = fmaxf(m, v);
+      for (int k = tid; k < nr * n_own; k += nt) {
+        const int r = k / n_own, i = k % n_own;
+        epi(r, i, total[r]);
       }
+    } else if (b < num_static) {
+      // reverse: M . u is u . M^T, columns of the transposed matrix
+      const float* M = statics + ((size_t)reverse * num_static + b) * SSp;
+      tile_static(M, Sp, my_ut, S, lo, n_own, per, SG, nr, red, epi);
     } else {
-      const float* M = b < num_static
-          ? static_exp + (size_t)b * SS
-          : be_exp + ((size_t)r * J + (size_t)(b - num_static)) * SS;
-      if (!reverse) {
-        product_forward(M, u, S, [&](int j, float x) {
-          const float v = x * erow[j];
-          s[j] = v;
-          m = fmaxf(m, v);
-        });
-      } else {
-        product_reverse(M, u, S, [&](int i, float x) {
-          s[i] = x;
-          m = fmaxf(m, x);
-        });
+      const float* M = bank + (size_t)(b - num_static) * SS;
+      if (!reverse)
+        bank_forward(M, bank_stride, my_ut, S, lo, n_own, JW, G, nr, red,
+                     epi);
+      else
+        bank_reverse(M, bank_stride, my_ut, S, lo, n_own, nr, epi);
+    }
+    __syncthreads();  // the slice is complete
+
+    // 2. a warp per restart sends every peer the slice's maximum and sum
+    // (reverse: weighted by fexp[t - 1]); the block writes the slice, so
+    // weighted, into every peer's next input
+    for (int r = warp; r < nr; r += nwarps) {
+      const float* s = slice + r * per;
+      const float* f = fr + r * per;
+      float m = 0.f, sum = 0.f;
+      for (int i = lane; i < n_own; i += 32) {
+        m = fmaxf(m, s[i]);
+        sum += reverse ? s[i] * f[i] : s[i];
+      }
+      m = warp_max(m);
+      sum = warp_sum(sum);
+      if (lane < C) {
+        float* peer = cluster.map_shared_rank(my_stat, lane);
+        *reinterpret_cast<float2*>(peer + (rank * RT + r) * 2) =
+            make_float2(m, sum);
       }
     }
-    m = fmaxf(block_max(m, red), TINY);
-    const float inv = 1.f / m;
-    scale = scale + logf(m) + FM[t];
-    for (int j = tid; j < S; j += nt) {
-      const float v = s[j] * inv;
-      u[j] = v;
-      dst[j] = logf(fmaxf(v, TINY)) + scale;
+    for (int k = tid; k < n_own * RT; k += nt) {
+      const int i = k / RT, r = k % RT;
+      if (r < nr) {
+        const float v = reverse ? slice[r * per + i] * fr[r * per + i]
+                                : slice[r * per + i];
+        const size_t at = (size_t)(lo + i) * RT + r;
+        for (int c = 0; c < C; ++c)
+          cluster.map_shared_rank(next_ut, c)[at] = v;
+      }
+    }
+    // 3.
+    cluster.sync();
+
+    // 4. each restart's normaliser over the peers' maxima: thread tid
+    // serves restart tid % RT (blockDim is a multiple of RT), rescales its
+    // next input in place, and thread r keeps restart r's scale and sum
+    {
+      const int r = tid % RT;
+      if (r < nr) {
+        const float2* peer = reinterpret_cast<const float2*>(my_stat) + r;
+        float m = TINY, sum = 0.f;
+        for (int c = 0; c < C; ++c) {
+          const float2 ms = peer[c * RT];
+          m = fmaxf(m, ms.x);
+          sum += ms.y;
+        }
+        const float inv = 1.f / m;
+        for (int i = tid / RT; i < S; i += nt / RT)
+          next_ut[(size_t)i * RT + r] *= inv;
+        if (tid < RT) {
+          gscale[r] = gscale[r] + logf(m) + fm[r];
+          ginv[r] = inv;
+          total[r] = sum * inv;
+        }
+      }
+    }
+    __syncthreads();
+
+    const size_t drow = (size_t)(reverse ? t - 1 : t) * S + lo;
+    for (int k = tid; k < nr * n_own; k += nt) {
+      const int r = k / n_own, i = k % n_own;
+      out[r * lane_stride + drow + i] =
+          logf(fmaxf(slice[r * per + i] * ginv[r], TINY)) + gscale[r];
     }
   }
+  // no block may leave while a peer can still write its shared memory
+  cluster.sync();
 }
-
-// fb_grouped_scaled_kernel's grid: (R*Q, 2) of `threads`, dynamic shared
-// memory 2*S + 33 floats.
-template <typename Kernel, typename... Args>
-int launch(Kernel kernel, int R, int Q, int S, int threads, void* stream,
-           Args... args) {
-  const size_t smem = (2 * (size_t)S + 33) * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const dim3 grid(R * Q, 2);
-  kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(args...);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
 
 // Grid (cluster, Q, 2 * ceil(R / RT)) in clusters of `cluster` blocks of
-// `threads`, `smem` bytes of dynamic shared memory: tile_base_floats and
-// red, which takes the breakend products' partial sums (RT x threads) and
-// the static product's of as many row groups as fit, at least one.
-extern "C" int fb_grouped_launch(const float* frames, const float* statics,
-                                 const float* be_exp, const int* cbi,
-                                 float* alphas, float* betas,
-                                 int R, int Q, int L, int S, int Lm1,
-                                 int num_static, int J, int cluster,
-                                 int threads, int smem, void* stream) {
+// `threads`, `smem` bytes of dynamic shared memory: the kernel's base
+// floats (scaled_base_floats for the scaled kernel, else tile_base_floats)
+// and red, which takes the breakend products' partial sums (RT x threads)
+// and the static product's of as many row groups as fit, at least one.
+// args are the kernel's arguments before per and SG, which follow them.
+template <typename Kernel, typename... Args>
+int launch_tile(Kernel kernel, bool scaled, int R, int Q, int S,
+                int cluster, int threads, int smem, void* stream,
+                Args... args) {
   if (cluster < 1 || cluster > MAX_CLUSTER) return (int)cudaErrorInvalidValue;
-  const int Sp = (S + 3) / 4 * 4;
   const int per = ((S + cluster - 1) / cluster + 3) / 4 * 4;
   const int JW = (per + 31) / 32 * 32;
   if (threads % 32 != 0 || threads > 1024 || threads < JW)
     return (int)cudaErrorInvalidValue;
-  const size_t red = smem / sizeof(float) - tile_base_floats(S, per);
-  if ((size_t)smem < tile_base_floats(S, per) * sizeof(float)
-      || red < (size_t)RT * threads || red < (size_t)RT * per)
+  const size_t base =
+      scaled ? scaled_base_floats(S, per) : tile_base_floats(S, per);
+  if (smem < 0 || (size_t)smem < base * sizeof(float))
+    return (int)cudaErrorInvalidValue;
+  const size_t red = smem / sizeof(float) - base;
+  if (red < (size_t)RT * threads || red < (size_t)RT * per)
     return (int)cudaErrorInvalidValue;
   const int SG = (int)min(
       (size_t)min(threads / (per / 4), S), red / ((size_t)RT * per));
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        fb_grouped_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
   }
   cudaLaunchConfig_t cfg = {};
@@ -719,23 +771,35 @@ extern "C" int fb_grouped_launch(const float* frames, const float* statics,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, fb_grouped_kernel, frames, statics, be_exp, cbi, alphas, betas,
-      R, Q, L, S, Sp, Lm1, num_static, J, per, SG);
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args..., per, SG);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
+}  // namespace
+
+extern "C" int fb_grouped_launch(const float* frames, const float* statics,
+                                 const float* be_exp, const int* cbi,
+                                 float* alphas, float* betas,
+                                 int R, int Q, int L, int S, int Lm1,
+                                 int num_static, int J, int cluster,
+                                 int threads, int smem, void* stream) {
+  return launch_tile(fb_grouped_kernel, false, R, Q, S, cluster, threads,
+                     smem, stream, frames, statics, be_exp, cbi, alphas,
+                     betas, R, Q, L, S, (S + 3) / 4 * 4, Lm1, num_static, J);
+}
+
 extern "C" int fb_grouped_scaled_launch(const float* fexp, const float* fmax,
-                                        const float* static_exp,
+                                        const float* statics,
                                         const float* be_exp, const int* cbi,
                                         float* alphas, float* betas,
                                         int R, int Q, int L, int S, int Lm1,
-                                        int num_static, int J, int threads,
-                                        void* stream) {
-  return launch(fb_grouped_scaled_kernel, R, Q, S, threads, stream, fexp,
-                fmax, static_exp, be_exp, cbi, alphas, betas, Q, L, S, Lm1,
-                num_static, J);
+                                        int num_static, int J, int cluster,
+                                        int threads, int smem, void* stream) {
+  return launch_tile(fb_grouped_scaled_kernel, true, R, Q, S, cluster,
+                     threads, smem, stream, fexp, fmax, statics, be_exp, cbi,
+                     alphas, betas, R, Q, L, S, (S + 3) / 4 * 4, Lm1,
+                     num_static, J);
 }
 
 extern "C" const char* fb_grouped_error_string(int code) {

@@ -390,6 +390,28 @@ def _param(params, name, extra):
     return x.reshape(x.shape + (1,) * (1 + extra - x.dim() + 2))
 
 
+class _ClassGather(torch.autograd.Function):
+    """``torch.gather`` of per-class rows (..., C, S) by a per-segment
+    class index (..., n, S), whose gradient sums each class's segments by a
+    one-hot contraction. ``torch.gather``'s own backward adds them with
+    ``scatter_add_``, whose CUDA atomics add in another order on every run:
+    with a few classes for hundreds of segments, the h update's gradient,
+    and from it the fit, then changes from run to run."""
+
+    @staticmethod
+    def forward(ctx, per_class, index):
+        ctx.save_for_backward(index)
+        ctx.num_classes = per_class.shape[-2]
+        return torch.gather(per_class, -2, index)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (index,) = ctx.saved_tensors
+        classes = torch.arange(ctx.num_classes, device=index.device)
+        onehot = (index[..., :1] == classes).to(grad.dtype)    # (..., n, C)
+        return torch.einsum('...nc,...ns->...cs', onehot, grad), None
+
+
 def _class_plane(table, h, seg_class, extra):
     """Per-class depth table (C, S, M)·h → per-segment plane (R, *C, n, S)."""
     h = h.reshape(h.shape[:-1] + (1,) * (1 + extra - (h.dim() - 1))
@@ -399,7 +421,7 @@ def _class_plane(table, h, seg_class, extra):
     per_class = per_class.expand(shape + per_class.shape[-2:])
     index = seg_class[..., None].expand(
         shape + (seg_class.shape[-1], per_class.shape[-1]))
-    return torch.gather(per_class, -2, index)
+    return _ClassGather.apply(per_class, index)
 
 
 def _total_emission_plane(spec, params, rows, u, extra=0):

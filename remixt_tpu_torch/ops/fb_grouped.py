@@ -34,7 +34,10 @@ the carry ``u`` stays linear, normalised by its maximum each step, with
 a log scale beside it, and the frames enter as ``exp(frame - fmax)``. Its
 messages are ``log(max(u, TINY)) + scale``; only the output is floored, so
 states far below a lane's maximum differ from the log-space recursion,
-which agrees with it on entries within 60 nats of the row maximum.
+which agrees with it on entries within 60 nats of the row maximum. Its
+kernel is the second of ``csrc/fb_grouped.cu``, on the same clusters,
+tiles and ``launch_plan`` (``scaled=True``); ``fb_grouped_scaled_cuda``
+takes ``cluster=`` too.
 """
 
 import ctypes
@@ -54,10 +57,10 @@ SCALED_LINEAR = os.environ.get('REMIXT_TPU_SCALED_LINEAR', '0') == '1'
 LAUNCHES = 0
 LAUNCHES_SCALED = 0
 
-#: thread blocks per (chain, direction, restart tile) cluster of the
-#: log-space kernel on the main path
+#: thread blocks per (chain, direction, restart tile) cluster of both
+#: kernels on the main path
 CLUSTER = 4
-#: restarts per tile of the log-space kernel (``RT`` in the source)
+#: restarts per tile of both kernels (``RT`` in the source)
 RESTART_TILE = 8
 #: dynamic shared memory one block may take on the card (227 KB)
 SMEM_LIMIT = 232448
@@ -181,11 +184,6 @@ def fb_grouped_scaled_reference(frames, static_exp, be_exp_b, chain_bank_idx):
     return alphas, betas
 
 
-def _launch_threads(S):
-    """Threads per block of the scaled kernel: one block per lane."""
-    return min(1024, max(32, -(-S // 32) * 32))
-
-
 def tile_base_floats(S, per):
     """Shared memory of the log-space kernel before its partial sums, in
     floats, as ``tile_base_floats`` of ``csrc/fb_grouped.cu`` counts it:
@@ -196,23 +194,31 @@ def tile_base_floats(S, per):
     return 2 * S * tile + 3 * tile * per + 32 * tile + 2 * tile + 2
 
 
-def launch_plan(R, S, cluster):
-    """Grid and block of the log-space kernel for R restarts of S states on
-    clusters of ``cluster`` blocks: ``tiles`` of ``RESTART_TILE`` restarts
-    (the grid is cluster × Q × 2·tiles), ``threads`` a block and
-    ``smem_bytes`` of dynamic shared memory. Each block owns ``per``
-    states, a multiple of 4 (the static product reads 4 columns at once).
-    Threads: whole warps over the slice, times as many row groups as give
-    the cluster about 2048 threads (as ``fb_chains``), and at least one
-    warp per restart of a tile where a block can hold them. The static
-    product's partial sums take as many of its row groups
-    (``static_groups``) as fit in ``SMEM_LIMIT``."""
+def scaled_base_floats(S, per):
+    """The same for the scaled kernel, as ``scaled_base_floats`` of
+    ``csrc/fb_grouped.cu`` counts it: the product slice in place of the
+    carry, and each restart's input sum, scale, inverse normaliser and
+    double-buffered ``fmax`` (5 x RT) in place of its maximum and sum."""
+    return tile_base_floats(S, per) + 3 * RESTART_TILE
+
+
+def launch_plan(R, S, cluster, scaled=False):
+    """Grid and block of the log-space kernel, or with ``scaled`` of the
+    scaled one, for R restarts of S states on clusters of ``cluster``
+    blocks: ``tiles`` of ``RESTART_TILE`` restarts (the grid is cluster ×
+    Q × 2·tiles), ``threads`` a block and ``smem_bytes`` of dynamic shared
+    memory. Each block owns ``per`` states, a multiple of 4 (the static
+    product reads 4 columns at once). Threads: whole warps over the slice,
+    times as many row groups as give the cluster about 2048 threads (as
+    ``fb_chains``), and at least one warp per restart of a tile where a
+    block can hold them. The static product's partial sums take as many of
+    its row groups (``static_groups``) as fit in ``SMEM_LIMIT``."""
     tile = RESTART_TILE
     per = -(-S // cluster) + 3 & ~3
     span = -(-per // 32) * 32
     rows = max(1, 2048 // cluster // span, -(-tile * 32 // span))
     threads = min(1024, span * rows)
-    base = tile_base_floats(S, per)
+    base = (scaled_base_floats if scaled else tile_base_floats)(S, per)
     groups = min(threads // (per // 4), S)
     # red: the breakend and the static products' partial sums
     red = min(max(tile * threads, groups * tile * per),
@@ -279,29 +285,26 @@ def load_launcher(unit, entry, num_ptrs, num_ints):
 def _launch(scaled, frames, static_exp, be_exp_b, chain_bank_idx,
             cluster=None):
     global LAUNCHES, LAUNCHES_SCALED
-    if not scaled:
-        cluster = CLUSTER if cluster is None else int(cluster)
-        if not 1 <= cluster <= 8:
-            raise ValueError('cluster must be 1 to 8, got {}'.format(cluster))
+    cluster = CLUSTER if cluster is None else int(cluster)
+    if not 1 <= cluster <= 8:
+        raise ValueError('cluster must be 1 to 8, got {}'.format(cluster))
     R, Q, L, S = frames.shape
     check_inputs(frames, static_exp, be_exp_b, chain_bank_idx)
     J = be_exp_b.shape[1]
     if R * Q == 0:
         return torch.empty_like(frames), torch.empty_like(frames)
 
+    plan = launch_plan(R, S, cluster, scaled)
+    statics = pad_statics(static_exp)
     if scaled:
         fn, err_string = load_launcher('fb_grouped', 'fb_grouped_scaled_launch',
-                                       7, 8)
+                                       7, 10)
         fexp, fmax = shift_frames(frames)
-        inputs = (fexp.data_ptr(), fmax.data_ptr(), static_exp.data_ptr())
-        block = (_launch_threads(S),)
+        inputs = (fexp.data_ptr(), fmax.data_ptr(), statics.data_ptr())
     else:
         fn, err_string = load_launcher('fb_grouped', 'fb_grouped_launch', 6,
                                        10)
-        statics = pad_statics(static_exp)
         inputs = (frames.data_ptr(), statics.data_ptr())
-        plan = launch_plan(R, S, cluster)
-        block = (cluster, plan['threads'], plan['smem_bytes'])
     # a breakend-free problem still needs a valid pointer
     be = be_exp_b if J else frames.new_zeros(1)
     alphas = torch.empty_like(frames)
@@ -311,7 +314,8 @@ def _launch(scaled, frames, static_exp, be_exp_b, chain_bank_idx,
         err = fn(*inputs, be.data_ptr(),
                  chain_bank_idx.data_ptr(), alphas.data_ptr(),
                  betas.data_ptr(), R, Q, L, S, chain_bank_idx.shape[1],
-                 static_exp.shape[0], J, *block, stream)
+                 static_exp.shape[0], J, cluster, plan['threads'],
+                 plan['smem_bytes'], stream)
     if err != 0:
         raise RuntimeError('fb_grouped{} kernel launch failed: {}'.format(
             '_scaled' if scaled else '', err_string(err).decode()))
@@ -333,12 +337,14 @@ def fb_grouped_cuda(frames, static_exp, be_exp_b, chain_bank_idx,
                    cluster)
 
 
-def fb_grouped_scaled_cuda(frames, static_exp, be_exp_b, chain_bank_idx):
+def fb_grouped_scaled_cuda(frames, static_exp, be_exp_b, chain_bank_idx,
+                           cluster=None):
     """Launch the scaled CUDA kernel on chain-major inputs; same contract
-    as :func:`fb_grouped_scaled_reference`. The frame shift runs here, in
-    torch, as the JAX wrapper runs it outside its kernel. Raises on
-    anything it cannot serve."""
-    return _launch(True, frames, static_exp, be_exp_b, chain_bank_idx)
+    as :func:`fb_grouped_scaled_reference`, and the launch rules of
+    :func:`fb_grouped_cuda`. The frame shift runs here, in torch, as the
+    JAX wrapper runs it outside its kernel."""
+    return _launch(True, frames, static_exp, be_exp_b, chain_bank_idx,
+                   cluster)
 
 
 def forward_backward_chains_grouped(frame_b, static_bank, be_exp_b,

@@ -150,3 +150,28 @@ def test_viterbi_decode_matches():
                                       teng.take(tstate, r))
         np.testing.assert_array_equal(seq.numpy(), np.asarray(ref_seq))
         np.testing.assert_allclose(float(lp), float(ref_lp), rtol=1e-10)
+
+
+@pytest.mark.parametrize('extra', [0, 1])
+def test_class_plane_gradient_is_the_gathers(extra):
+    """The per-segment depth plane's gradient in h, summed over segments by
+    a one-hot contraction (no atomics on the card), equals
+    ``torch.gather``'s own on the CPU."""
+    rng = np.random.RandomState(extra)
+    R, k, n, C, S, M = 2, 4, 9, 3, 5, 3
+    table = torch.as_tensor(rng.rand(C, S, M))
+    h = torch.tensor(rng.rand(*((R, k, M) if extra else (R, M))),
+                     requires_grad=True)
+    seg_class = torch.as_tensor(rng.randint(0, C, size=(R,) + (1,) * extra
+                                            + (n,)))
+    weight = torch.as_tensor(rng.rand(*((R, k, n, S) if extra
+                                        else (R, n, S))))
+    plane = teng._class_plane(table, h, seg_class, extra)
+    (grad,) = torch.autograd.grad((plane * weight).sum(), h)
+
+    per_class = torch.einsum('csm,...m->...cs', table, h)
+    index = seg_class[..., None].expand(plane.shape)
+    ref = torch.gather(per_class.expand(plane.shape[:-2] + (C, S)), -2, index)
+    (ref_grad,) = torch.autograd.grad((ref * weight).sum(), h)
+    assert torch.equal(plane, ref)
+    np.testing.assert_allclose(grad.numpy(), ref_grad.numpy(), rtol=1e-13)

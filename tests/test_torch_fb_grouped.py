@@ -7,13 +7,15 @@
 (b) its plain version in float64 against the JAX restart-batched scan;
 (c) the wrapper takes the plain version for CPU tensors, and the module
     imports without nvcc or a GPU;
-(d) the CUDA route checks its inputs before it loads a library, and the
-    launch plan fits the card and matches the kernel source's layout.
+(d) the CUDA route checks its inputs before it loads a library, the
+    launch plans of both kernels fit the card and match the kernel
+    source's layout, and the wrapper passes the launchers' C signatures.
 
 The CUDA kernel itself is held against the plain version on the card by
 ``chip_smoke.py``.
 """
 
+import contextlib
 import re
 import subprocess
 import sys
@@ -194,6 +196,39 @@ def c_expression(source, pattern):
     return '({})'.format(expr)
 
 
+def plan_matches_source(S, cluster, scaled):
+    """Hold ``launch_plan(8, S, cluster, scaled)`` to the launcher's own
+    formulas, evaluated from ``csrc/fb_grouped.cu``: the restart tile, the
+    block's slice, the kernel's floats before the partial sums
+    (``tile_base_floats`` or ``scaled_base_floats``) and the static
+    product's row groups. Returns the plan."""
+    source = (CSRC / 'fb_grouped.cu').read_text()
+    consts = {name: int(value) for name, value in
+              re.findall(r'constexpr int (\w+) = (\d+);', source)}
+    assert consts['RT'] == fb_grouped.RESTART_TILE
+    plan = fb_grouped.launch_plan(8, S, cluster, scaled)
+    env = dict(consts, S=S, cluster=cluster, min=min)
+    per = eval(c_expression(source, r'const int per = ([^;]*);'), env)
+    assert per == plan['per']
+
+    def base_floats(name):
+        return c_expression(source, r'size_t ' + name + r'\(int S, int per\) '
+                            r'\{\s*return ([^;]*);')
+
+    tile_base = base_floats('tile_base_floats')
+    env.update(per=per, tile_base_floats=lambda S, per: eval(
+        tile_base, dict(consts, S=S, per=per)))
+    name = 'scaled_base_floats' if scaled else 'tile_base_floats'
+    base = eval(base_floats(name), env)
+    assert base == getattr(fb_grouped, name)(S, per)
+    red = plan['smem_bytes'] // 4 - base
+    assert red >= consts['RT'] * max(plan['threads'], per)
+    env.update(threads=plan['threads'], red=red)
+    assert eval(c_expression(source, r'const int SG = ([^;]*);'),
+                env) == plan['static_groups']
+    return plan
+
+
 @pytest.mark.parametrize('cluster', [1, 4, 8])
 @pytest.mark.parametrize('S', [6, 355, 1000])
 def test_launch_plan_matches_the_kernel_source(S, cluster):
@@ -201,24 +236,60 @@ def test_launch_plan_matches_the_kernel_source(S, cluster):
     the restart tile, the block's slice, the floats before the partial
     sums and the static product's row groups, the launcher's own formulas
     evaluated from ``csrc/fb_grouped.cu``."""
+    plan_matches_source(S, cluster, scaled=False)
+
+
+@pytest.mark.parametrize('cluster', [1, 4, 8])
+@pytest.mark.parametrize('S', [6, 355, 1000])
+def test_scaled_launch_plan_matches_the_kernel_source(S, cluster):
+    """The same for the scaled kernel's plan, ``launch_plan(scaled=True)``.
+    Its blocks are the log-space kernel's, and its shared memory fits a
+    block's 227 KB."""
+    plan = plan_matches_source(S, cluster, scaled=True)
+    log_space = fb_grouped.launch_plan(8, S, cluster)
+    assert (plan['threads'], plan['per']) == (log_space['threads'],
+                                              log_space['per'])
+    assert plan['smem_bytes'] <= 227 * 1024
+
+
+@pytest.mark.parametrize('scaled', [False, True])
+def test_launch_passes_the_c_signature(monkeypatch, scaled):
+    """The wrapper hands the launcher as many pointers and ints as its
+    ``extern "C"`` signature in ``csrc/fb_grouped.cu`` takes, the cluster,
+    threads and shared memory of ``launch_plan`` last before the stream.
+    The library and the stream are stubbed: no kernel runs here."""
+    name = 'fb_grouped_scaled_launch' if scaled else 'fb_grouped_launch'
     source = (CSRC / 'fb_grouped.cu').read_text()
-    consts = {name: int(value) for name, value in
-              re.findall(r'constexpr int (\w+) = (\d+);', source)}
-    assert consts['RT'] == fb_grouped.RESTART_TILE
-    plan = fb_grouped.launch_plan(8, S, cluster)
-    env = dict(consts, S=S, cluster=cluster, min=min)
-    assert eval(c_expression(source, r'const int per = ([^;]*);'),
-                env) == plan['per']
-    env['per'] = plan['per']
-    base = eval(c_expression(
-        source, r'size_t tile_base_floats\(int S, int per\) \{\s*return '
-        r'([^;]*);'), env)
-    assert base == fb_grouped.tile_base_floats(S, plan['per'])
-    red = plan['smem_bytes'] // 4 - base
-    assert red >= consts['RT'] * max(plan['threads'], plan['per'])
-    env.update(threads=plan['threads'], red=red)
-    assert eval(c_expression(source, r'const int SG = ([^;]*);'),
-                env) == plan['static_groups']
+    params = re.search(r'extern "C" int ' + name + r'\(([^)]*)\)',
+                       source).group(1).split(',')
+    kinds = ['int' if re.match(r'\s*int \w+$', p) else 'pointer'
+             for p in params]
+    assert kinds[-1] == 'pointer'   # the stream
+    calls = []
+
+    def launcher(unit, entry, num_ptrs, num_ints):
+        assert (unit, entry) == ('fb_grouped', name)
+        assert kinds == (['pointer'] * num_ptrs + ['int'] * num_ints
+                         + ['pointer'])
+        return (lambda *args: calls.append(args) or 0), None
+
+    class Stream:
+        cuda_stream = 0
+
+    monkeypatch.setattr(fb_grouped, 'load_launcher', launcher)
+    monkeypatch.setattr(torch.cuda, 'current_stream', lambda device: Stream)
+    monkeypatch.setattr(torch.cuda, 'device',
+                        lambda device: contextlib.nullcontext())
+    R, Q, L, S = 3, 2, 4, 6
+    frames = torch.zeros((R, Q, L, S))
+    launch = (fb_grouped.fb_grouped_scaled_cuda if scaled
+              else fb_grouped.fb_grouped_cuda)
+    launch(frames, torch.zeros((2, S, S)), torch.zeros((R, 1, S, S)),
+           torch.zeros((Q, L - 1), dtype=torch.int32), cluster=2)
+    (args,) = calls
+    assert len(args) == len(params)
+    plan = fb_grouped.launch_plan(R, S, 2, scaled)
+    assert args[-4:-1] == (2, plan['threads'], plan['smem_bytes'])
 
 
 def test_padded_statics_hold_the_matrices_and_their_transposes():

@@ -13,7 +13,8 @@
 (c) both plain scaled versions in float64 against the JAX log-space scan;
 (d) the wrappers take the plain scaled version for CPU tensors, with
     ``scaled=True`` or with the switch on;
-(e) the scaled CUDA launchers check their inputs before touching a library.
+(e) the scaled CUDA launchers check their inputs, and the cluster size,
+    before touching a library.
 
 Tolerances: (a) and (b) atol 2e-4 / rtol 1e-5 on entries within 60 nats of
 the row maximum and log_norm rtol 1e-5, as ``test_fb_pallas.py`` holds the
@@ -229,3 +230,20 @@ def test_scaled_cuda_path_checks_its_inputs(path, bad):
               else fb_chains.fb_chains_scaled_cuda)
     with pytest.raises(ValueError):
         launch(frames, static_exp, be_exp, cbi, **kwargs)
+
+
+@pytest.mark.parametrize('cluster', [0, 9])
+def test_grouped_scaled_cuda_checks_the_cluster_first(monkeypatch, cluster):
+    """A cluster size outside 1 to 8 raises before any library load."""
+    from remixt_tpu_torch.ops import _build
+
+    def no_library(*args, **kwargs):
+        raise AssertionError('no library may be loaded')
+
+    monkeypatch.setattr(_build, 'load', no_library)
+    monkeypatch.setattr(fb_grouped, 'load_launcher', no_library)
+    with pytest.raises(ValueError, match='cluster'):
+        fb_grouped.fb_grouped_scaled_cuda(
+            torch.zeros((2, 2, 4, 3)), torch.zeros((1, 3, 3)),
+            torch.zeros((2, 0, 3, 3)), torch.zeros((2, 3), dtype=torch.int32),
+            cluster=cluster)
