@@ -20,9 +20,14 @@ Phases, in order; any failure exits non-zero:
    direction), and times the kernel once more with its breakend steps
    made static.
 2b. Kernel vs plain, one restart: the same problem with restart 0's state
-   through the ``fb_chains`` kernel (each cluster size built) and its plain
-   version, at the same tolerances; times both, and ``fb_grouped`` (at its
-   default cluster size) on the same inputs at R=1.
+   through the ``fb_chains`` kernel at every cluster size whose resident
+   slice fits (``CHAIN_CLUSTERS``) and its plain version, at the same
+   tolerances, with two launches on the same inputs bit-identical; again
+   with two non-cut static classes on some chains, so that static steps
+   of a class that is not resident run too. Times both, prints the launch
+   plan and the card's co-resident clusters at each size, times
+   ``fb_grouped`` (at its default cluster size) on the same inputs at R=1
+   and the kernel with its breakend steps made static, as phase 2 does.
 2c. The scaled-linear kernel, restart-batched: phase 2's inputs through
    ``fb_grouped_scaled`` at each cluster size in ``CLUSTERS`` and its
    plain version, at phase 2's tolerances; its posteriors within 1e-3 of
@@ -53,7 +58,10 @@ Phases, in order; any failure exits non-zero:
    under ``torch.use_deterministic_algorithms(True, warn_only=True)``, and
    prints the max abs difference of h, ELBO and posteriors of each from
    the first fit, and the ops torch names as nondeterministic; this only
-   reports.
+   reports. Last, restart 0 through ``pipeline.fit`` with a snapshot file,
+   stopped after one EM iteration and resumed from the snapshot to the
+   same depth: its h, ELBO, posteriors and decoded copy number must equal
+   the first fit's bit for bit.
 7. Both paths with the scaled-linear switch on (``fb_grouped.SCALED_LINEAR``,
    the ``REMIXT_TPU_SCALED_LINEAR=1`` of the JAX package): phase 3's wave
    through the batched ``fit_many`` and restart 0 through the sequential
@@ -81,8 +89,13 @@ N_FULL, EVENTS_FULL, CHAINS_FULL, CN_MAX_FULL = 6000, 300, 23, 12
 WAVE = 8
 NUM_EM_ITER, NUM_UPDATE_ITER = 2, 2
 SEQUENTIAL_RESTARTS = 2
-BUILD_UNITS = ('fb_grouped', 'fb_chains')
+# the kernel libraries: (source, macros); fb_chains also with its clock64
+# marks, for phase 2b's trace
+BUILDS = (('fb_grouped', ()), ('fb_chains', ()),
+          ('fb_chains', ('FB_CHAINS_TRACE',)))
 CLUSTERS = (4, 8)
+# every cluster size whose resident slice fits fb_chains at S=355
+CHAIN_CLUSTERS = (3, 4, 5, 6, 7, 8)
 # the scaled fits decode the copy number of the log-space fits on at
 # least this share of the segments
 SAME_CN_SHARE = 0.99
@@ -161,14 +174,15 @@ def phase_environment():
         torch.__version__, torch.version.cuda, sys.version.split()[0]))
     log('card: ' + smi)
     t0 = time.time()
-    with ThreadPoolExecutor(len(BUILD_UNITS)) as pool:
-        list(pool.map(_build.build, BUILD_UNITS))
-    for name in BUILD_UNITS:
-        _build.load(name)
-    log('phase 1: built {} in {:.2f} s'.format(', '.join(BUILD_UNITS),
+    with ThreadPoolExecutor(len(BUILDS)) as pool:
+        list(pool.map(lambda b: _build.build(*b), BUILDS))
+    for build in BUILDS:
+        _build.load(*build)
+    names = ['+'.join((name,) + defines) for name, defines in BUILDS]
+    log('phase 1: built {} in {:.2f} s'.format(', '.join(names),
                                               time.time() - t0))
-    for name in BUILD_UNITS:
-        for line in _build.build_logs.get(name, '').splitlines():
+    for name, (unit, defines) in zip(names, BUILDS):
+        for line in _build.build_logs.get((unit,) + defines, '').splitlines():
             if 'registers' in line or 'spill' in line or 'smem' in line:
                 log('  ptxas {}: {}'.format(name, line.strip()))
     return smi
@@ -331,49 +345,147 @@ def phase_kernel(inputs):
                 bound_by=bound_by), messages[fb_grouped.CLUSTER]
 
 
+def two_static_classes(static_exp, cbi, seed=5):
+    """A schedule with two non-cut static classes on some chains: a copy of
+    class 1 perturbed by up to 10 % appended to ``static_exp``, the
+    breakend indices moved past it, and every fifth class-1 step of every
+    sixth chain pointed at it. Those chains keep class 1 resident and
+    stream the new class's steps. Returns (statics, cbi, steps moved)."""
+    import torch
+    num_static = static_exp.shape[0]
+    rng = np.random.RandomState(seed)
+    noise = torch.as_tensor(1.0 + 0.1 * rng.rand(*static_exp.shape[1:]),
+                            dtype=static_exp.dtype, device=static_exp.device)
+    statics = torch.cat([static_exp, (static_exp[1] * noise)[None]])
+    steps = cbi.cpu().numpy()
+    steps = np.where(steps >= num_static, steps + 1, steps)
+    moved = 0
+    for q in range(0, steps.shape[0], 6):
+        ones = np.flatnonzero(steps[q] == 1)[::5]
+        steps[q, ones] = num_static
+        moved += len(ones)
+    return (statics.contiguous(),
+            torch.as_tensor(steps, dtype=cbi.dtype, device=cbi.device), moved)
+
+
 def phase_kernel_chains(inputs):
     """The single-restart kernel against its plain version at the main
-    path's shapes: restart 0 of phase 2's wave, each cluster size."""
+    path's shapes: restart 0 of phase 2's wave, at every cluster size in
+    ``CHAIN_CLUSTERS``, with two launches bit-identical and the card's
+    co-resident clusters at each; again with two non-cut static classes on
+    some chains (``two_static_classes``); and timed with its breakend steps
+    made static."""
     import torch
     from remixt_tpu_torch.ops import fb_chains, fb_grouped
 
     spec, frames, static_exp, be_exp, cbi = inputs
+    num_static = static_exp.shape[0]
+    statics2, cbi2, moved = two_static_classes(static_exp, cbi)
     with torch.no_grad():
-        a_p, b_p = fb_chains.fb_chains_reference(frames, static_exp, be_exp,
-                                                 cbi)
+        plain = fb_chains.fb_chains_reference(frames, static_exp, be_exp, cbi)
+        plain2 = fb_chains.fb_chains_reference(frames, statics2, be_exp, cbi2)
         torch.cuda.synchronize()
-        cluster_ms, messages, max_err = {}, {}, 0.0
-        for cluster in CLUSTERS:
-            a_k, b_k = messages[cluster] = fb_chains.fb_chains_cuda(
+        cluster_ms, kernel_ms, messages, resident_clusters = {}, {}, {}, {}
+        max_err = max_err2 = 0.0
+        for cluster in CHAIN_CLUSTERS:
+            k = messages[cluster] = fb_chains.fb_chains_cuda(
                 frames, static_exp, be_exp, cbi, cluster=cluster)
+            again = fb_chains.fb_chains_cuda(frames, static_exp, be_exp, cbi,
+                                             cluster=cluster)
+            k2 = fb_chains.fb_chains_cuda(frames, statics2, be_exp, cbi2,
+                                          cluster=cluster)
             torch.cuda.synchronize()
-            max_err = max(max_err, check_messages(((a_k, a_p), (b_k, b_p))))
-            check_log_norm(spec, (a_k[None], b_k[None]),
-                           (a_p[None], b_p[None]))
+            if not all(torch.equal(x, y) for x, y in zip(k, again)):
+                raise AssertionError('phase 2b: two launches at cluster size '
+                                     '{} differ'.format(cluster))
+            del again
+            max_err = max(max_err, check_messages(zip(k, plain)))
+            check_log_norm(spec, tuple(x[None] for x in k),
+                           tuple(x[None] for x in plain))
+            max_err2 = max(max_err2, check_messages(zip(k2, plain2)))
+            check_log_norm(spec, tuple(x[None] for x in k2),
+                           tuple(x[None] for x in plain2))
+            del k2
+            resident_clusters[cluster] = fb_chains.max_active_clusters(
+                spec.S, cluster)
             cluster_ms[cluster] = cuda_ms(
                 lambda: fb_chains.fb_chains_cuda(
                     frames, static_exp, be_exp, cbi, cluster=cluster),
                 reps=7)
+            kernel_ms[cluster] = cuda_ms(fb_chains.launcher(
+                frames, static_exp, be_exp, cbi, cluster=cluster)[0], reps=7)
+        del plain, plain2
         plain_ms = cuda_ms(lambda: fb_chains.fb_chains_reference(
             frames, static_exp, be_exp, cbi), reps=5)
         grouped_ms = cuda_ms(lambda: fb_grouped.fb_grouped_cuda(
             frames[None], static_exp, be_exp[None], cbi), reps=7)
+        static_only = made_static(cbi, num_static)
+        static_ms = cuda_ms(lambda: fb_chains.fb_chains_cuda(
+            frames, static_exp, be_exp, static_only), reps=7)
+        static_kernel_ms = cuda_ms(fb_chains.launcher(
+            frames, static_exp, be_exp, static_only)[0], reps=7)
+        resident = fb_chains.resident_classes(cbi, num_static, spec.L - 1)
+        traces = {label: fb_chains.trace(frames, static_exp, be_exp, sched)
+                  for label, sched in (('main', cbi),
+                                       ('made static', static_only))}
 
+    k = messages[fb_chains.CLUSTER]
     bound_ms, bound_by, bytes_ms, flops_ms, nbytes, flops = bound(
-        spec, 1, (frames, static_exp, be_exp, cbi), (a_k, b_k))
-    log('phase 2b: one restart, Q={} L={} S={} J={}; max abs diff {:.3e}'
-        .format(spec.Q, spec.L, spec.S, be_exp.shape[0], max_err))
-    log('phase 2b: fb_chains ms by cluster size {}; plain {:.3f} ms; '
-        'fb_grouped at R=1 {:.3f} ms'.format(
+        spec, 1, (frames, static_exp, be_exp, cbi), k)
+    log('phase 2b: one restart, Q={} L={} S={} J={}; resident classes {}; '
+        'max abs diff {:.3e}; two launches bit-identical at each size'.format(
+            spec.Q, spec.L, spec.S, be_exp.shape[0],
+            json.dumps(resident.cpu().tolist()), max_err))
+    log('phase 2b: fb_chains ms by cluster size {} (the kernel alone, '
+        'on inputs the wrapper prepared: {}); plain {:.3f} ms; fb_grouped at '
+        'R=1 {:.3f} ms'.format(
             json.dumps({c: round(t, 4) for c, t in cluster_ms.items()}),
+            json.dumps({c: round(t, 4) for c, t in kernel_ms.items()}),
             plain_ms, grouped_ms))
+    log('phase 2b: launch plans {}'.format(json.dumps(
+        {c: fb_chains.launch_plan(spec.S, c) for c in CHAIN_CLUSTERS})))
+    log('phase 2b: co-resident clusters by cluster size {} ({} clusters on '
+        'the main path)'.format(json.dumps(resident_clusters), 2 * spec.Q))
+    log('phase 2b: two non-cut static classes ({} steps of every sixth chain '
+        'moved to a perturbed copy of class 1): max abs diff {:.3e} at '
+        'each size'.format(moved, max_err2))
     log('phase 2b: bound {:.4f} ms ({}): bytes {:.4f} GB = {:.4f} ms, '
         'fp32 {:.3f} GFLOP = {:.4f} ms'.format(
             bound_ms, bound_by, nbytes / 1e9, bytes_ms, flops / 1e9,
             flops_ms))
+    log_floor('phase 2b', spec, cbi, num_static, be_exp, nbytes, static_ms,
+              fb_chains.CLUSTER)
+    log('phase 2b: made static, the kernel alone: {:.4f} ms'.format(
+        static_kernel_ms))
+    for label, rows in traces.items():
+        log_trace('phase 2b ' + label, rows)
     return dict(max_abs_err=max_err, ms=cluster_ms[fb_chains.CLUSTER],
-                plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by), messages[fb_chains.CLUSTER]
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by), k
+
+
+def log_trace(label, rows):
+    """The kernel's clock64 marks (``fb_chains.trace``): per direction, the
+    mean cycles a step of each part over the chains, the card's clock, and
+    the slowest (chain, direction) with its steps' span."""
+    from remixt_tpu_torch.ops import fb_chains
+    cols = fb_chains.TRACE_COLUMNS
+    steps = rows[:, 4:8].sum(axis=1)
+    span_ns = rows[:, 9] - rows[:, 8]
+    cycles = rows[:, :4].sum(axis=1)
+    ghz = float(np.median(cycles / span_ns))
+    for d, name in ((0, 'forward'), (1, 'reverse')):
+        part = rows[d::2]
+        kinds = dict(zip(cols[4:8], part[:, 4:8].sum(axis=0).tolist()))
+        log('{}: {} mean cycles a step {}; steps {}'.format(
+            label, name, json.dumps({
+                cols[k]: round(float((part[:, k] / steps[d::2]).mean()), 1)
+                for k in range(4)}), json.dumps(kinds)))
+    worst = int(cycles.argmax())
+    log('{}: {:.3f} GHz; slowest chain {} {}: {:.1f} us, {} cycles; the '
+        'steps of all chains end within {:.1f} us of the first start'.format(
+            label, ghz, worst // 2, ('forward', 'reverse')[worst % 2],
+            span_ns[worst] / 1e3, int(cycles[worst]),
+            (rows[:, 9].max() - rows[:, 8].min()) / 1e3))
 
 
 def phase_kernel_scaled(label, inputs, kernel, plain, log_space, main,
@@ -650,6 +762,7 @@ def phase_sequential_fit(data, batched_results):
         'phase 3, per restart: ' + json.dumps(same_cn(results,
                                                       batched_results)))
     repeat_fit(data, results[0])
+    resume_fit(data, results[0])
     return expected, results
 
 
@@ -685,6 +798,62 @@ def repeat_fit(data, first):
         '{}'.format(json.dumps(diff(again))))
     log('phase 6: ops torch names as nondeterministic in that fit: {}'.format(
         json.dumps(ops) if ops else 'none'))
+
+
+def resume_fit(data, first):
+    """Restart 0 through ``pipeline.fit`` with a snapshot file, stopped
+    after one EM iteration and resumed from the snapshot to phase 6's
+    depth, as a killed ``fit_task`` job resumes. Prints the max abs
+    difference of h, ELBO, posteriors and decoded copy number (segments
+    and breakpoints) from phase 6's uninterrupted fit; any nonzero
+    difference fails."""
+    import os
+    from remixt_tpu_torch.analysis import pipeline
+
+    init_params, config, experiment = fit_inputs(data, 1, num_restarts=1)
+    snapshot = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            'build', 'chip_smoke', 'restart0.ckpt')
+    os.makedirs(os.path.dirname(snapshot), exist_ok=True)
+    if os.path.exists(snapshot):
+        os.remove(snapshot)
+    extract = pipeline._extract_results
+
+    def with_posteriors(model, *args):
+        out = extract(model, *args)
+        out['posteriors'] = model.state.posterior_marginals.cpu().numpy()
+        return out
+
+    pipeline._extract_results = with_posteriors
+    try:
+        pipeline.fit(experiment, init_params[0], config,
+                     snapshot_filename=snapshot)
+        config['num_em_iter'] = NUM_EM_ITER
+        resumed = pipeline.fit(experiment, init_params[0], config,
+                               snapshot_filename=snapshot)
+    finally:
+        pipeline._extract_results = extract
+        if os.path.exists(snapshot):
+            os.remove(snapshot)
+
+    def max_diff(a, b):
+        return float(np.abs(np.asarray(a, dtype=float)
+                            - np.asarray(b, dtype=float)).max())
+
+    diff = {key: max_diff(pick(first), pick(resumed))
+            for key, pick in (('h', lambda r: r['h']),
+                              ('elbo', lambda r: r['stats']['elbo']),
+                              ('posteriors', lambda r: r['posteriors']),
+                              ('cn', lambda r: r['cn']))}
+    brk, brk_ref = resumed['brk_cn'], first['brk_cn']
+    diff['brk_cn'] = (max([max_diff(brk[k], brk_ref[k]) for k in brk_ref]
+                          + [0.0]) if set(brk) == set(brk_ref)
+                      else float('inf'))
+    log('phase 6: restart 0 through pipeline.fit stopped after 1 EM '
+        'iteration and resumed from its snapshot to {}: max abs diff from '
+        'the uninterrupted fit {}'.format(NUM_EM_ITER, json.dumps(diff)))
+    if any(v != 0.0 for v in diff.values()):
+        raise AssertionError('phase 6: the resumed fit differs from the '
+                             'uninterrupted one: {}'.format(diff))
 
 
 def phase_scaled_fits(data, batched_results, sequential_results):
@@ -865,7 +1034,7 @@ def main():
     chains_scaled = phase_kernel_scaled(
         'phase 2d', one, fb_chains.fb_chains_scaled_cuda,
         fb_chains.fb_chains_scaled_reference, chains_messages,
-        fb_chains.CLUSTER, (fb_chains.CLUSTER,))
+        fb_chains.SCALED_CLUSTER, (fb_chains.SCALED_CLUSTER,))
     del inputs, one, frames, be_exp_b, grouped_messages, chains_messages
     grouped['launches'], batched_results = phase_fit(data)
     phase_small_f32_vs_f64()

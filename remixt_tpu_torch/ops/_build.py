@@ -6,7 +6,8 @@ build runs at first use, from the sources in the package only, into
 ``build/remixt_tpu_torch/`` at the repository root, and is keyed by a hash
 of the source and the flags, so a changed source is rebuilt and an
 unchanged one is loaded as it is. A missing ``nvcc`` or a failed build
-raises.
+raises. ``defines`` build a variant of a source with preprocessor macros
+defined (``-D``), such as ``FB_CHAINS_TRACE``, beside the plain one.
 """
 
 import ctypes
@@ -25,7 +26,8 @@ NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 
 _lock = threading.Lock()
 _libs = {}
-#: compiler output (ptxas register and shared-memory report) per kernel
+#: compiler output (ptxas register and shared-memory report) per library,
+#: keyed by (name, *defines)
 build_logs = {}
 
 
@@ -43,16 +45,21 @@ def find_nvcc():
     return found
 
 
-def library_path(name):
+def _flags(defines):
+    return NVCC_FLAGS + ['-D' + d for d in defines]
+
+
+def library_path(name, defines=()):
     source = (CSRC / (name + '.cu')).read_bytes()
-    key = hashlib.sha256(source + ' '.join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / 'lib{}_{}.so'.format(name, key[:16])
+    key = hashlib.sha256(source + ' '.join(_flags(defines)).encode())
+    return BUILD_DIR / 'lib{}{}_{}.so'.format(
+        name, ''.join('_' + d.lower() for d in defines), key.hexdigest()[:16])
 
 
-def build(name):
-    """Compile ``csrc/<name>.cu`` unless its keyed library exists; return
-    the library path."""
-    out = library_path(name)
+def build(name, defines=()):
+    """Compile ``csrc/<name>.cu`` (with macros ``defines``) unless its keyed
+    library exists; return the library path."""
+    out = library_path(name, defines)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -60,12 +67,12 @@ def build(name):
     os.close(fd)
     try:
         proc = subprocess.run(
-            [find_nvcc()] + NVCC_FLAGS + ['-o', tmp, str(CSRC / (name + '.cu'))],
+            [find_nvcc()] + _flags(defines)
+            + ['-o', tmp, str(CSRC / (name + '.cu'))],
             capture_output=True, text=True)
-        build_logs[name] = proc.stdout + proc.stderr
+        log = build_logs[(name,) + tuple(defines)] = proc.stdout + proc.stderr
         if proc.returncode != 0:
-            raise RuntimeError('nvcc failed for {}:\n{}'.format(
-                name, build_logs[name]))
+            raise RuntimeError('nvcc failed for {}:\n{}'.format(name, log))
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):
@@ -73,10 +80,11 @@ def build(name):
     return out
 
 
-def load(name):
-    """The loaded ``ctypes`` library of kernel ``name``, built on first
-    use."""
+def load(name, defines=()):
+    """The loaded ``ctypes`` library of kernel ``name`` (with macros
+    ``defines``), built on first use."""
+    key = (name,) + tuple(defines)
     with _lock:
-        if name not in _libs:
-            _libs[name] = ctypes.CDLL(str(build(name)))
-        return _libs[name]
+        if key not in _libs:
+            _libs[key] = ctypes.CDLL(str(build(name, defines)))
+        return _libs[key]

@@ -267,11 +267,12 @@ def check_inputs(frames, static_exp, be_exp, chain_bank_idx):
         raise ValueError('chain_bank_idx has fewer than L-1 steps')
 
 
-def load_launcher(unit, entry, num_ptrs, num_ints):
+def load_launcher(unit, entry, num_ptrs, num_ints, defines=()):
     """The ``extern "C"`` launch function ``entry`` of kernel library
-    ``unit`` (built on first use) and its error-string accessor."""
+    ``unit`` (built on first use, with macros ``defines``) and its
+    error-string accessor."""
     from remixt_tpu_torch.ops import _build
-    lib = _build.load(unit)
+    lib = _build.load(unit, defines)
     fn = getattr(lib, entry)
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * num_ptrs + [ctypes.c_int] * num_ints
