@@ -35,8 +35,9 @@ Phases, in order; any failure exits non-zero:
    the same inputs bit-identical. Times each, prints the bound beside the
    design's floor, and times the kernel with its breakend steps made
    static, as phase 2 does.
-2d. The same for ``fb_chains_scaled`` on phase 2b's inputs, at the
-   default cluster size, without the made-static probe.
+2d. Phase 2b's checks and times for ``fb_chains_scaled`` on its inputs,
+   at every size in ``CHAIN_CLUSTERS``, its trace included, and its
+   posteriors within 1e-3 of the log-space ``fb_chains``' at each size.
 3. The batched path at full width: ``analysis.pipeline.fit_many`` on that
    experiment with the 8 restarts, 2 EM iterations × 2 VI sweeps (the one
    cut: the defaults are 5 × 5). Checks finite ELBOs, the decoded copy
@@ -368,36 +369,40 @@ def two_static_classes(static_exp, cbi, seed=5):
             torch.as_tensor(steps, dtype=cbi.dtype, device=cbi.device), moved)
 
 
-def phase_kernel_chains(inputs):
-    """The single-restart kernel against its plain version at the main
-    path's shapes: restart 0 of phase 2's wave, at every cluster size in
-    ``CHAIN_CLUSTERS``, with two launches bit-identical and the card's
-    co-resident clusters at each; again with two non-cut static classes on
-    some chains (``two_static_classes``); and timed with its breakend steps
-    made static."""
+def phase_kernel_chains(label, inputs, scaled=False, log_space=None):
+    """The single-restart kernel (with ``scaled`` the scaled one) against
+    its plain version at the main path's shapes: restart 0 of phase 2's
+    wave, at every cluster size in ``CHAIN_CLUSTERS``, with two launches
+    bit-identical and the card's co-resident clusters at each; again with
+    two non-cut static classes on some chains (``two_static_classes``);
+    and timed with its breakend steps made static. The scaled kernel's
+    posteriors must lie within 1e-3 of the log-space kernel's messages
+    ``log_space`` on the same inputs at each size."""
     import torch
     from remixt_tpu_torch.ops import fb_chains, fb_grouped
 
     spec, frames, static_exp, be_exp, cbi = inputs
+    suffix = '_scaled' if scaled else ''
+    kernel = getattr(fb_chains, 'fb_chains{}_cuda'.format(suffix))
+    plain_fn = getattr(fb_chains, 'fb_chains{}_reference'.format(suffix))
+    grouped = getattr(fb_grouped, 'fb_grouped{}_cuda'.format(suffix))
     num_static = static_exp.shape[0]
     statics2, cbi2, moved = two_static_classes(static_exp, cbi)
     with torch.no_grad():
-        plain = fb_chains.fb_chains_reference(frames, static_exp, be_exp, cbi)
-        plain2 = fb_chains.fb_chains_reference(frames, statics2, be_exp, cbi2)
+        plain = plain_fn(frames, static_exp, be_exp, cbi)
+        plain2 = plain_fn(frames, statics2, be_exp, cbi2)
         torch.cuda.synchronize()
         cluster_ms, kernel_ms, messages, resident_clusters = {}, {}, {}, {}
-        max_err = max_err2 = 0.0
+        max_err = max_err2 = post_diff = 0.0
         for cluster in CHAIN_CLUSTERS:
-            k = messages[cluster] = fb_chains.fb_chains_cuda(
-                frames, static_exp, be_exp, cbi, cluster=cluster)
-            again = fb_chains.fb_chains_cuda(frames, static_exp, be_exp, cbi,
-                                             cluster=cluster)
-            k2 = fb_chains.fb_chains_cuda(frames, statics2, be_exp, cbi2,
-                                          cluster=cluster)
+            k = messages[cluster] = kernel(frames, static_exp, be_exp, cbi,
+                                           cluster=cluster)
+            again = kernel(frames, static_exp, be_exp, cbi, cluster=cluster)
+            k2 = kernel(frames, statics2, be_exp, cbi2, cluster=cluster)
             torch.cuda.synchronize()
             if not all(torch.equal(x, y) for x, y in zip(k, again)):
-                raise AssertionError('phase 2b: two launches at cluster size '
-                                     '{} differ'.format(cluster))
+                raise AssertionError('{}: two launches at cluster size {} '
+                                     'differ'.format(label, cluster))
             del again
             max_err = max(max_err, check_messages(zip(k, plain)))
             check_log_norm(spec, tuple(x[None] for x in k),
@@ -406,59 +411,81 @@ def phase_kernel_chains(inputs):
             check_log_norm(spec, tuple(x[None] for x in k2),
                            tuple(x[None] for x in plain2))
             del k2
+            if scaled:
+                post_diff = max(post_diff, posterior_diff(
+                    spec, tuple(x[None] for x in k),
+                    tuple(x[None] for x in log_space)))
+                if not post_diff <= 1e-3:
+                    raise AssertionError('{}: posteriors differ from the '
+                                         'log-space kernel\'s by {}'.format(
+                                             label, post_diff))
             resident_clusters[cluster] = fb_chains.max_active_clusters(
-                spec.S, cluster)
+                spec.S, cluster, scaled)
             cluster_ms[cluster] = cuda_ms(
-                lambda: fb_chains.fb_chains_cuda(
-                    frames, static_exp, be_exp, cbi, cluster=cluster),
-                reps=7)
+                lambda: kernel(frames, static_exp, be_exp, cbi,
+                               cluster=cluster), reps=7)
             kernel_ms[cluster] = cuda_ms(fb_chains.launcher(
-                frames, static_exp, be_exp, cbi, cluster=cluster)[0], reps=7)
+                frames, static_exp, be_exp, cbi, cluster=cluster,
+                scaled=scaled)[0], reps=7)
         del plain, plain2
-        plain_ms = cuda_ms(lambda: fb_chains.fb_chains_reference(
-            frames, static_exp, be_exp, cbi), reps=5)
-        grouped_ms = cuda_ms(lambda: fb_grouped.fb_grouped_cuda(
+        plain_ms = cuda_ms(lambda: plain_fn(frames, static_exp, be_exp, cbi),
+                           reps=5)
+        grouped_ms = cuda_ms(lambda: grouped(
             frames[None], static_exp, be_exp[None], cbi), reps=7)
         static_only = made_static(cbi, num_static)
-        static_ms = cuda_ms(lambda: fb_chains.fb_chains_cuda(
+        static_ms = cuda_ms(lambda: kernel(
             frames, static_exp, be_exp, static_only), reps=7)
         static_kernel_ms = cuda_ms(fb_chains.launcher(
-            frames, static_exp, be_exp, static_only)[0], reps=7)
+            frames, static_exp, be_exp, static_only, scaled=scaled)[0],
+            reps=7)
         resident = fb_chains.resident_classes(cbi, num_static, spec.L - 1)
-        traces = {label: fb_chains.trace(frames, static_exp, be_exp, sched)
-                  for label, sched in (('main', cbi),
-                                       ('made static', static_only))}
+        traces = {sched_label: fb_chains.trace(frames, static_exp, be_exp,
+                                               sched, scaled=scaled)
+                  for sched_label, sched in (('main', cbi),
+                                             ('made static', static_only))}
+        # the scaled kernel reads fexp and fmax in place of the frames
+        moved_inputs = (frames,)
+        if scaled:
+            shift_ms = cuda_ms(lambda: fb_grouped.shift_frames(frames),
+                               reps=7)
+            moved_inputs = fb_grouped.shift_frames(frames)
 
     k = messages[fb_chains.CLUSTER]
     bound_ms, bound_by, bytes_ms, flops_ms, nbytes, flops = bound(
-        spec, 1, (frames, static_exp, be_exp, cbi), k)
-    log('phase 2b: one restart, Q={} L={} S={} J={}; resident classes {}; '
+        spec, 1, moved_inputs + (static_exp, be_exp, cbi), k)
+    log('{}: one restart, Q={} L={} S={} J={}; resident classes {}; '
         'max abs diff {:.3e}; two launches bit-identical at each size'.format(
-            spec.Q, spec.L, spec.S, be_exp.shape[0],
+            label, spec.Q, spec.L, spec.S, be_exp.shape[0],
             json.dumps(resident.cpu().tolist()), max_err))
-    log('phase 2b: fb_chains ms by cluster size {} (the kernel alone, '
-        'on inputs the wrapper prepared: {}); plain {:.3f} ms; fb_grouped at '
-        'R=1 {:.3f} ms'.format(
+    log('{}: {} ms by cluster size {} (the kernel alone, on inputs the '
+        'wrapper prepared: {}); plain {:.3f} ms; {} at R=1 {:.3f} ms{}'.format(
+            label, 'fb_chains' + suffix,
             json.dumps({c: round(t, 4) for c, t in cluster_ms.items()}),
             json.dumps({c: round(t, 4) for c, t in kernel_ms.items()}),
-            plain_ms, grouped_ms))
-    log('phase 2b: launch plans {}'.format(json.dumps(
+            plain_ms, 'fb_grouped' + suffix, grouped_ms,
+            '; the frame shift in torch, in the times through the wrapper, '
+            '{:.3f} ms'.format(shift_ms) if scaled else ''))
+    log('{}: launch plans {}'.format(label, json.dumps(
         {c: fb_chains.launch_plan(spec.S, c) for c in CHAIN_CLUSTERS})))
-    log('phase 2b: co-resident clusters by cluster size {} ({} clusters on '
-        'the main path)'.format(json.dumps(resident_clusters), 2 * spec.Q))
-    log('phase 2b: two non-cut static classes ({} steps of every sixth chain '
+    log('{}: co-resident clusters by cluster size {} ({} clusters on '
+        'the main path)'.format(label, json.dumps(resident_clusters),
+                                2 * spec.Q))
+    log('{}: two non-cut static classes ({} steps of every sixth chain '
         'moved to a perturbed copy of class 1): max abs diff {:.3e} at '
-        'each size'.format(moved, max_err2))
-    log('phase 2b: bound {:.4f} ms ({}): bytes {:.4f} GB = {:.4f} ms, '
+        'each size'.format(label, moved, max_err2))
+    log('{}: bound {:.4f} ms ({}): bytes {:.4f} GB = {:.4f} ms, '
         'fp32 {:.3f} GFLOP = {:.4f} ms'.format(
-            bound_ms, bound_by, nbytes / 1e9, bytes_ms, flops / 1e9,
+            label, bound_ms, bound_by, nbytes / 1e9, bytes_ms, flops / 1e9,
             flops_ms))
-    log_floor('phase 2b', spec, cbi, num_static, be_exp, nbytes, static_ms,
+    if scaled:
+        log('{}: posterior max abs diff vs the log-space kernel {:.3e} '
+            '(worst size)'.format(label, post_diff))
+    log_floor(label, spec, cbi, num_static, be_exp, nbytes, static_ms,
               fb_chains.CLUSTER)
-    log('phase 2b: made static, the kernel alone: {:.4f} ms'.format(
-        static_kernel_ms))
-    for label, rows in traces.items():
-        log_trace('phase 2b ' + label, rows)
+    log('{}: made static, the kernel alone: {:.4f} ms'.format(
+        label, static_kernel_ms))
+    for sched_label, rows in traces.items():
+        log_trace('{} {}'.format(label, sched_label), rows)
     return dict(max_abs_err=max_err, ms=cluster_ms[fb_chains.CLUSTER],
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by), k
 
@@ -488,28 +515,25 @@ def log_trace(label, rows):
             (rows[:, 9].max() - rows[:, 8].min()) / 1e3))
 
 
-def phase_kernel_scaled(label, inputs, kernel, plain, log_space, main,
-                        clusters, probe=False):
-    """A scaled kernel against its plain version on ``inputs`` (R, Q, L, S
-    with R = 1 dropped for the single-restart kernel) at each cluster size
-    in ``clusters``; its time is the main path's cluster size ``main``'s.
-    Also its posteriors
-    against the log-space kernel's ``log_space`` messages on the same
-    inputs, ≤ 1e-3, and two launches on the same inputs, bit-identical.
-    With ``probe``, also the made-static probe and the design's floor, as
-    phase 2 prints them."""
+def phase_kernel_scaled(inputs, log_space):
+    """The restart-batched scaled kernel against its plain version on phase
+    2's inputs at each cluster size in ``CLUSTERS``; its time is the main
+    path's cluster size's. Also its posteriors against the log-space
+    kernel's ``log_space`` messages on the same inputs, ≤ 1e-3, two
+    launches on the same inputs bit-identical, and the made-static probe
+    and the design's floor, as phase 2 prints them."""
     import torch
     from remixt_tpu_torch.ops import fb_grouped
 
+    label = 'phase 2c'
     spec, frames, static_exp, be_exp, cbi = inputs
-    R = frames.shape[0] if frames.dim() == 4 else 1
-    batch = (lambda m: m) if frames.dim() == 4 else (
-        lambda m: tuple(x[None] for x in m))
+    kernel = fb_grouped.fb_grouped_scaled_cuda
+    plain = fb_grouped.fb_grouped_scaled_reference
     cluster_ms, max_err, post_diff = {}, 0.0, 0.0
     with torch.no_grad():
         p = plain(frames, static_exp, be_exp, cbi)
         torch.cuda.synchronize()
-        for cluster in clusters:
+        for cluster in CLUSTERS:
             k = kernel(frames, static_exp, be_exp, cbi, cluster=cluster)
             again = kernel(frames, static_exp, be_exp, cbi, cluster=cluster)
             torch.cuda.synchronize()
@@ -518,9 +542,8 @@ def phase_kernel_scaled(label, inputs, kernel, plain, log_space, main,
                                      'differ'.format(label, cluster))
             del again
             max_err = max(max_err, check_messages(zip(k, p)))
-            check_log_norm(spec, batch(k), batch(p))
-            post_diff = max(post_diff, posterior_diff(spec, batch(k),
-                                                      batch(log_space)))
+            check_log_norm(spec, k, p)
+            post_diff = max(post_diff, posterior_diff(spec, k, log_space))
             if not post_diff <= 1e-3:
                 raise AssertionError('{}: posteriors differ from the '
                                      'log-space kernel\'s by {}'.format(
@@ -532,15 +555,13 @@ def phase_kernel_scaled(label, inputs, kernel, plain, log_space, main,
         plain_ms = cuda_ms(lambda: plain(frames, static_exp, be_exp, cbi),
                            reps=5)
         shift_ms = cuda_ms(lambda: fb_grouped.shift_frames(frames), reps=7)
-        if probe:
-            static_only = made_static(cbi, static_exp.shape[0])
-            static_ms = cuda_ms(lambda: kernel(
-                frames, static_exp, be_exp, static_only, cluster=main),
-                reps=7)
+        static_only = made_static(cbi, static_exp.shape[0])
+        static_ms = cuda_ms(lambda: kernel(
+            frames, static_exp, be_exp, static_only), reps=7)
         fexp, fmax = fb_grouped.shift_frames(frames)
 
     bound_ms, bound_by, bytes_ms, flops_ms, nbytes, flops = bound(
-        spec, R, (fexp, fmax, static_exp, be_exp, cbi), k)
+        spec, frames.shape[0], (fexp, fmax, static_exp, be_exp, cbi), k)
     log('{}: kernel ms by cluster size {} (each with the frame shift in '
         'torch, {:.3f} ms), plain {:.3f} ms, max abs diff {:.3e}; two '
         'launches bit-identical at each'.format(
@@ -550,10 +571,9 @@ def phase_kernel_scaled(label, inputs, kernel, plain, log_space, main,
         'GFLOP = {:.4f} ms; posterior max abs diff vs the log-space kernel '
         '{:.3e}'.format(label, bound_ms, bound_by, nbytes / 1e9, bytes_ms,
                         flops / 1e9, flops_ms, post_diff))
-    if probe:
-        log_floor(label, spec, cbi, static_exp.shape[0], be_exp, nbytes,
-                  static_ms, main)
-    return dict(max_abs_err=max_err, ms=cluster_ms[main],
+    log_floor(label, spec, cbi, static_exp.shape[0], be_exp, nbytes,
+              static_ms, fb_grouped.CLUSTER)
+    return dict(max_abs_err=max_err, ms=cluster_ms[fb_grouped.CLUSTER],
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 
@@ -1021,20 +1041,14 @@ def main():
 
     smi = phase_environment()
     data = simulate(N_FULL, CN_MAX_FULL, EVENTS_FULL, CHAINS_FULL, seed=0)
-    from remixt_tpu_torch.ops import fb_chains, fb_grouped
     inputs = kernel_inputs(data, WAVE)
     spec, frames, static_exp, be_exp_b, cbi = inputs
     one = (spec, frames[0], static_exp, be_exp_b[0], cbi)
     grouped, grouped_messages = phase_kernel(inputs)
-    chains, chains_messages = phase_kernel_chains(one)
-    grouped_scaled = phase_kernel_scaled(
-        'phase 2c', inputs, fb_grouped.fb_grouped_scaled_cuda,
-        fb_grouped.fb_grouped_scaled_reference, grouped_messages,
-        fb_grouped.CLUSTER, CLUSTERS, probe=True)
-    chains_scaled = phase_kernel_scaled(
-        'phase 2d', one, fb_chains.fb_chains_scaled_cuda,
-        fb_chains.fb_chains_scaled_reference, chains_messages,
-        fb_chains.SCALED_CLUSTER, (fb_chains.SCALED_CLUSTER,))
+    chains, chains_messages = phase_kernel_chains('phase 2b', one)
+    grouped_scaled = phase_kernel_scaled(inputs, grouped_messages)
+    chains_scaled, _ = phase_kernel_chains('phase 2d', one, scaled=True,
+                                           log_space=chains_messages)
     del inputs, one, frames, be_exp_b, grouped_messages, chains_messages
     grouped['launches'], batched_results = phase_fit(data)
     phase_small_f32_vs_f64()

@@ -83,33 +83,52 @@
 //
 // The scaled-linear variant, fb_chains_scaled_kernel, replaces the TPU
 // kernel _fb_kernel_scaled (fb_pallas.py:260), the chain update of the
-// single-restart fit under REMIXT_TPU_SCALED_LINEAR=1. It keeps the earlier
-// design of this file: no residency, static and breakend matrices read
-// from L2 or device memory with 4-byte loads, the exchanged slices pulled.
-// It reads fexp = exp(frame - fmax) (Q, L, S) and fmax (Q, L) and keeps a
-// linear carry normalised by its maximum, with a log scale beside it (see
-// fb_grouped.cu). Its normaliser m is the maximum of the step's new
-// product over all S states, known only after the exchange, so the block
-// publishes the product rather than the carry; still one cluster barrier
-// a step:
-//   1. each block computes its slice s_c of the product (the forward one
-//      already times its columns' fexp[t]) and publishes it with its
-//      maximum m_c and its sum (reverse: weighted by the output position's
-//      fexp, which the next step folds in);
-//   2. one cluster barrier;
-//   3. every block takes m = max(max_c m_c, TINY), scale += log(m) +
-//      fmax[t], gathers the next product's input s / m (reverse: times
-//      fexp of the output position) through distributed shared memory,
-//      and writes its own slice's log(max(s_c / m, TINY)) + scale; the cut
-//      class of the next step is sum_c sum_c / m.
-// Every block of a cluster sees the same m and fmax, so each keeps the
-// same scale without a further exchange. Its bound at whole-genome width
-// is the log-space one: 0.330 GB moved once, 0.098 ms at 3.35 TB/s, above
-// the fp32 3.05 GFLOP (0.046 ms). At C=4 it took 2.97 ms, the frame shift
-// in torch (0.06 ms) included, against 3.10 ms for the earlier
-// fb_chains_kernel in the same run (chip_smoke.py phase 2d, NVIDIA H100
-// 80GB HBM3, 700 W): latency-bound, each thread issuing ~70 dependent
-// loads from L2 a step.
+// single-restart fit under REMIXT_TPU_SCALED_LINEAR=1. It reads fexp =
+// exp(frame - fmax) (Q, L, S) and fmax (Q, L), made by the wrapper, and
+// keeps a linear vector normalised by its maximum, with a log scale beside
+// it (see fb_grouped.cu):
+//   forward s = (u . M) * fexp[t], reverse s = M . (u * fexp[t]) (the cut
+//   class sums), m = max(max(s), TINY), u = s / m, scale += log(m) +
+//   fmax[t], and the message log(max(u, TINY)) + scale.
+// It runs on fb_chains_kernel's clusters, slices, shared memory and
+// exchange: the resident class in shared memory, the other classes and
+// the breakend matrices as there, st.async pushes counted on mbarriers,
+// one block barrier a step and no cluster barrier. What differs is that
+// the normaliser m is the maximum of the step's new product over all S
+// states, known only after the exchange, so a block pushes its slice of
+// the product rather than of its input:
+//   - At the end of a step warp 0 holds the block's slice s_c of the
+//     product (forward already times its fexp[t] quad, loaded a step
+//     ahead), takes its maximum m_c, and pushes into every peer
+//     p_c = s_c / max(m_c, TINY) (reverse: times fexp[t - 1], which the
+//     next product folds in), with (m_c, sum(p_c), the next class).
+//   - After the wait every block takes m = max(max_c m_c, TINY) in the
+//     peers' order, so all see the same m and keep the same scale. Peer
+//     c's part of the input is p_c * max(m_c, TINY) / m: product_slice
+//     folds that factor into the thread's sums, where fb_chains_kernel
+//     folds exp(m_c - m), and the cut class is sum_c sum(p_c) times it.
+//     p_c lies in [0, 1] whatever m is, so the product never runs on
+//     subnormal inputs, and no pass rescales u before it (a reverse
+//     breakend step excepted, as in fb_chains_kernel).
+//   - The message of step t's product needs m, so warp 0 keeps s_c in
+//     registers and writes its row log(max(s_c / m, TINY)) + scale one
+//     step late, after the next exchange, and after its own push of that
+//     step, so that the peers do not wait for the row. The first vector
+//     (forward fexp[0], reverse 1) goes through the same push, and a
+//     closing push of the statistics alone gives the last row its m.
+// What bounds it is what bounds fb_chains_kernel: 0.330 GB moved once,
+// 0.098 ms at 3.35 TB/s, above the fp32 3.05 GFLOP (0.046 ms), far below
+// the latency of the serial chain. At C=5 (the card holds 47 of its
+// clusters, all 46 of the problem; 30-45 at the other sizes) it took
+// 1.31-1.43 ms through its wrapper, the frame shift in torch included, and
+// 1.10-1.11 ms alone, against 3.00-3.05 ms in the same call for the
+// earlier design of this kernel (every static matrix streamed from L2 with
+// 4-byte loads, the peers' slices pulled across a cluster barrier); 0.88
+// ms alone with every breakend step made static (chip_smoke.py phase 2d,
+// NVIDIA H100 80GB HBM3, 700.00 W). A step costs ~6.7-8.2K cycles at 1.99
+// GHz: ~2.9-4.0K the common maximum, product and block barrier, ~2.7-2.9K
+// warp 0's epilogue, push and row, ~0.3K the exchange's wait
+// (fb_chains.trace). It is latency-bound, ~11x off the bound alone.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -134,51 +153,7 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// The block's slice of the forward product u . M: its own columns
-// [lo, lo + n_own), JW-wide, times G row groups; the row groups' partial
-// sums meet in red (blockDim floats) behind one block barrier, which every
-// thread must reach. epi(j, s) for each own column j.
-template <typename Epi>
-__device__ __forceinline__ void slice_forward(const float* M, const float* u,
-                                              int S, int lo, int n_own,
-                                              int JW, int G, float* red,
-                                              Epi epi) {
-  const int tid = threadIdx.x;
-  const int jj = tid % JW, g = tid / JW;
-  float acc = 0.f;
-  if (g < G && jj < n_own) {
-    const float* col = M + lo + jj;
-#pragma unroll 4
-    for (int i = g; i < S; i += G) acc = fmaf(u[i], col[(size_t)i * S], acc);
-  }
-  red[tid] = acc;
-  __syncthreads();
-  for (int j = tid; j < n_own; j += blockDim.x) {
-    float s = 0.f;
-    for (int gg = 0; gg < G; ++gg) s += red[gg * JW + j];
-    epi(j, s);
-  }
-}
-
-// The block's slice of the reverse product M . u: its own rows, a warp
-// per row; lane 0 calls epi(i, s) for own row i.
-template <typename Epi>
-__device__ __forceinline__ void slice_reverse(const float* M, const float* u,
-                                              int S, int lo, int n_own,
-                                              Epi epi) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  for (int i = warp; i < n_own; i += nwarps) {
-    const float* row = M + (size_t)(lo + i) * S;
-    float s = 0.f;
-#pragma unroll 4
-    for (int j = lane; j < S; j += 32) s = fmaf(row[j], u[j], s);
-    s = warp_sum(s);
-    if (lane == 0) epi(i, s);
-  }
-}
-
-// Shared memory of fb_chains_kernel before its partial sums, in floats:
+// Shared memory of both kernels before their partial sums, in floats:
 // the resident slice (S x per), u (2 x Sp, Sp = S rounded up to a
 // multiple of 4, so that quads of it are 16-byte aligned), the peers'
 // statistics (2 x MAX_CLUSTER x 4) and the two exchange barriers (2 x 8
@@ -270,10 +245,10 @@ __device__ __forceinline__ void bar_wait(unsigned long long* bar,
 // part summed over the steps, as thread 0 of the cluster's block 0 sees
 // them, and the %globaltimer nanoseconds at the start and the end of its
 // steps; fb_chains_trace_read copies them out. Parts: 0 warp 0's loads of
-// the next step's frame and class, 1 the exchange's wait, 2 the common
-// maximum, the product and the block barrier, 3 warp 0's epilogue, shift
-// and push; 4-7 the number of cut, resident, other static and breakend
-// steps; 8, 9 start and end.
+// what its epilogue needs, 1 the exchange's wait, 2 the common maximum,
+// the product and the block barrier, 3 warp 0's epilogue and push; 4-7 the
+// number of cut, resident, other static and breakend steps; 8, 9 start
+// and end. Either kernel writes them.
 constexpr int TRACE_PARTS = 10;
 constexpr int TRACE_CHAINS = 64;
 __device__ long long fb_chains_trace[2 * TRACE_CHAINS][TRACE_PARTS];
@@ -283,22 +258,53 @@ __device__ __forceinline__ long long global_ns() {
   asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
   return t;
 }
+
+// The marks add up in shared memory, copied out at the end.
+#define TRACE_OPEN                                                  \
+  __shared__ long long spent[TRACE_PARTS];                          \
+  const bool traced = tid == 0 && rank == 0 && q < TRACE_CHAINS;    \
+  long long mark = clock64();                                       \
+  if (traced) {                                                     \
+    for (int k = 0; k < TRACE_PARTS; ++k) spent[k] = 0;             \
+    spent[8] = global_ns();                                         \
+  }
+#define TRACE(k)                        \
+  if (traced) {                         \
+    const long long now = clock64();    \
+    spent[k] += now - mark;             \
+    mark = now;                         \
+  }
+#define TRACE_KIND(b)                                                   \
+  if (traced)                                                           \
+    spent[4 + ((b) == 0 ? 0 : (b) == res ? 1 : (b) < num_static ? 2 : 3)] \
+        += 1;
+#define TRACE_CLOSE                                     \
+  if (traced) {                                         \
+    spent[9] = global_ns();                             \
+    for (int k = 0; k < TRACE_PARTS; ++k)               \
+      fb_chains_trace[2 * q + reverse][k] = spent[k];   \
+  }
+#else
+#define TRACE_OPEN
+#define TRACE(k)
+#define TRACE_KIND(b)
+#define TRACE_CLOSE
 #endif
 
 // The block's slice of u . M: columns [0, n_own) of M, whose rows are ld
 // floats apart. A quad of 4 columns a thread (quad tid % (per / 4)) and G
 // row groups, G / C of them for each peer's part of u, so that a thread's
 // rows (tid / (per / 4) = c * G / C + k: rows c * per + k, k + G / C, ...)
-// come from one peer c, whose shift exp(m_c - m) (stat[4c] the peer's
-// maximum, m the common one) scales the thread's sums once. kAligned: M's
+// come from one peer c, whose factor scale(c) (fb_chains_kernel: the
+// peer's shift exp(m_c - m); fb_chains_scaled_kernel: its normaliser
+// max(m_c, TINY) / m) scales the thread's sums once. kAligned: M's
 // address and ld are multiples of 4 floats (the resident slice in shared
 // memory, the padded statics), one 16-byte load a row; else (a breakend
 // matrix) 4-byte loads of the quad's own columns. Each row group writes
 // its partial sums, a row of red (G x per floats, 16-byte aligned).
-template <bool kAligned>
+template <bool kAligned, typename Scale>
 __device__ __forceinline__ void product_slice(const float* M, int ld,
-                                              const float* u,
-                                              const float* stat, float m,
+                                              const float* u, Scale scale,
                                               int S, int n_own, int per,
                                               int C, int G, float* red) {
   const int tid = threadIdx.x;
@@ -327,7 +333,7 @@ __device__ __forceinline__ void product_slice(const float* M, int ld,
       acc.z = fmaf(x, w.z, acc.z);
       acc.w = fmaf(x, w.w, acc.w);
     }
-    const float sc = expf(stat[4 * c] - m);
+    const float sc = scale(c);
     acc.x *= sc;
     acc.y *= sc;
     acc.z *= sc;
@@ -353,6 +359,81 @@ __device__ __forceinline__ void bank_reverse(const float* M, const float* u,
   }
 }
 
+// The block's slice of a step's product with class b (not the cut class)
+// into red, from the input u whose part from peer c scale(c) scales:
+// the resident slice, the padded statics (reverse: their transposes, as
+// u . M^T) or breakend matrix b - num_static. Returns the rows of partial
+// sums it wrote. A reverse breakend step scales u in place first, behind
+// a block barrier, which every thread reaches since b is the block's.
+template <typename Scale>
+__device__ __forceinline__ int step_product(
+    int b, int res, bool reverse, const float* slice, const float* statics,
+    const float* be_exp, float* u, Scale scale, int S, int Sp, int lo,
+    int n_own, int per, int C, int G, int num_static, float* red) {
+  if (b == res) {
+    product_slice<true>(slice, per, u, scale, S, n_own, per, C, G, red);
+  } else if (b < num_static) {
+    product_slice<true>(
+        statics + ((size_t)reverse * num_static + b) * S * Sp + lo, Sp, u,
+        scale, S, n_own, per, C, G, red);
+  } else {
+    const float* M = be_exp + (size_t)(b - num_static) * S * S;
+    if (!reverse) {
+      product_slice<false>(M + lo, S, u, scale, S, n_own, per, C, G, red);
+    } else {
+      // every peer's part of u to the common maximum
+      for (int i = threadIdx.x; i < S; i += blockDim.x) u[i] *= scale(i / per);
+      __syncthreads();
+      bank_reverse(M + (size_t)lo * S, u, S, n_own, red);
+      return 1;
+    }
+  }
+  return G;
+}
+
+// Warp 0's quad of a step's product: its `rows` rows of partial sums, in a
+// fixed order.
+__device__ __forceinline__ float4 sum_rows(const float* red, int rows,
+                                           int per, int lane) {
+  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+  const float4* part = reinterpret_cast<const float4*>(red) + lane;
+  for (int g = 0; g < rows; ++g) {
+    const float4 p = part[g * (per / 4)];
+    s.x += p.x;
+    s.y += p.y;
+    s.z += p.z;
+    s.w += p.w;
+  }
+  return s;
+}
+
+// Before the first step: the block's column slice of the chain's resident
+// class res (reverse: of its transpose, so that both directions run u . M
+// on it), whole quads of the own columns in bounds of Sp, copied with
+// 16-byte cp.async into slice (S x per); thread 0 sets up the two exchange
+// barriers. A cluster barrier must follow before any peer writes the
+// block's shared memory.
+__device__ __forceinline__ void load_resident(
+    float* slice, const float* statics, int res, bool reverse,
+    int num_static, int S, int Sp, int lo, int n_own, int per,
+    unsigned long long* bars) {
+  if (res >= 0) {
+    const int nq = (n_own + 3) / 4;
+    const float* src =
+        statics + ((size_t)reverse * num_static + res) * S * Sp + lo;
+    for (int k = threadIdx.x; k < S * nq; k += blockDim.x) {
+      const int i = k / nq, c = k % nq;
+      copy_async16(slice + (size_t)i * per + 4 * c,
+                   src + (size_t)i * Sp + 4 * c);
+    }
+  }
+  copy_async_wait();
+  if (threadIdx.x == 0) {
+    bar_init(bars);
+    bar_init(bars + 1);
+  }
+}
+
 // The lane's quad of a row of states [lo + 4k, lo + 4k + 4) from global
 // memory, states past the slice (w <= the index) as `pad`.
 __device__ __forceinline__ float4 load_quad(const float* row, int w,
@@ -366,6 +447,16 @@ __device__ __forceinline__ void store_quad(float* row, int w, float4 v) {
   if (w > 1) row[1] = v.y;
   if (w > 2) row[2] = v.z;
   if (w > 3) row[3] = v.w;
+}
+
+__device__ __forceinline__ float4 mul4(float4 a, float4 b) {
+  return make_float4(a.x * b.x, a.y * b.y, a.z * b.z, a.w * b.w);
+}
+
+// v with the states past the slice (w <= the index) zero.
+__device__ __forceinline__ float4 own_quad(float4 v, int w) {
+  return make_float4(w > 0 ? v.x : 0.f, w > 1 ? v.y : 0.f,
+                     w > 2 ? v.z : 0.f, w > 3 ? v.w : 0.f);
 }
 
 // frames (Q, L, S); statics (2, num_static, S, Sp): the static class
@@ -408,12 +499,11 @@ fb_chains_kernel(const float* __restrict__ frames,
   float* red = slice + chains_base_floats(S, per);
   unsigned long long* bars = reinterpret_cast<unsigned long long*>(red) - 2;
 
-  const size_t SS = (size_t)S * S, SSp = (size_t)S * Sp;
   const float* F = frames + (size_t)q * L * S + lo;
   float* out = (reverse ? betas : alphas) + (size_t)q * L * S + lo;
   const int* bidx = cbi + (size_t)q * Lm1;
   const int res = resident[q];
-  const int tid = threadIdx.x, nt = blockDim.x;
+  const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   // warp 0 keeps the carry, a quad of own states a lane (w of them own)
   const int w = n_own - 4 * lane;
@@ -422,22 +512,8 @@ fb_chains_kernel(const float* __restrict__ frames,
   // statistics
   const unsigned step_bytes = 4u * Sp + 16u * C;
 
-  // the resident slice: whole quads of the own columns, in bounds of Sp
-  if (res >= 0) {
-    const int nq = (n_own + 3) / 4;
-    const float* src =
-        statics + ((size_t)reverse * num_static + res) * SSp + lo;
-    for (int k = tid; k < S * nq; k += nt) {
-      const int i = k / nq, c = k % nq;
-      copy_async16(slice + (size_t)i * per + 4 * c,
-                   src + (size_t)i * Sp + 4 * c);
-    }
-  }
-  copy_async_wait();
-  if (tid == 0) {
-    bar_init(bars);
-    bar_init(bars + 1);
-  }
+  load_resident(slice, statics, res, reverse, num_static, S, Sp, lo, n_own,
+                per, bars);
   // the carry: forward the first frame, reverse 0
   float4 carry = make_float4(0.f, 0.f, 0.f, 0.f);
   if (owner) {
@@ -493,24 +569,7 @@ fb_chains_kernel(const float* __restrict__ frames,
     }
     shift_push(1, x, bidx[t - 1]);
   }
-#ifdef FB_CHAINS_TRACE
-  const bool traced = tid == 0 && rank == 0 && q < TRACE_CHAINS;
-  // the marks add up in shared memory, copied out at the end
-  __shared__ long long spent[TRACE_PARTS];
-  long long mark = clock64();
-  if (traced) {
-    for (int k = 0; k < TRACE_PARTS; ++k) spent[k] = 0;
-    spent[8] = global_ns();
-  }
-#define TRACE(k)                        \
-  if (traced) {                         \
-    const long long now = clock64();    \
-    spent[k] += now - mark;             \
-    mark = now;                         \
-  }
-#else
-#define TRACE(k)
-#endif
+  TRACE_OPEN
 
   for (int step = 1; step < L; ++step) {
     // forward: pair (t-1, t) produces position t from frame t;
@@ -543,39 +602,15 @@ fb_chains_kernel(const float* __restrict__ frames,
       if (c < C)
         total = fmaf(my_stat[4 * c + 1], expf(my_stat[4 * c] - m), total);
     const int b = __float_as_int(my_stat[2]);
-#ifdef FB_CHAINS_TRACE
-    const int kind = b == 0 ? 0 : b == res ? 1 : b < num_static ? 2 : 3;
-    if (traced) spent[4 + kind] += 1;
-#endif
+    TRACE_KIND(b);
 
-    // the product's partial sums, G rows of red (a reverse breakend: 1)
-    int rows = G;
-    if (b == 0) {
-      rows = 0;
-    } else if (b == res) {
-      product_slice<true>(slice, per, my_u, my_stat, m, S, n_own, per, C, G,
-                          red);
-    } else if (b < num_static) {
-      // reverse: M . u is u . M^T, columns of the transposed matrix
-      product_slice<true>(
-          statics + ((size_t)reverse * num_static + b) * SSp + lo, Sp, my_u,
-          my_stat, m, S, n_own, per, C, G, red);
-    } else {
-      const float* M = be_exp + (size_t)(b - num_static) * SS;
-      if (!reverse) {
-        product_slice<false>(M + lo, S, my_u, my_stat, m, S, n_own, per, C,
-                             G, red);
-      } else {
-        // every peer's part of u to the common maximum
-        for (int i = tid; i < S; i += nt) {
-          const int c = i / per;
-          my_u[i] *= expf(my_stat[4 * c] - m);
-        }
-        __syncthreads();
-        bank_reverse(M + (size_t)lo * S, my_u, S, n_own, red);
-        rows = 1;
-      }
-    }
+    // the product's partial sums, rows of red (none for the cut class)
+    const int rows =
+        b == 0 ? 0
+               : step_product(
+                     b, res, reverse, slice, statics, be_exp, my_u,
+                     [&](int c) { return expf(my_stat[4 * c] - m); }, S, Sp,
+                     lo, n_own, per, C, G, num_static, red);
     // the partial sums are written, and every read of u and the statistics
     // of this step is done before warp 0 lets the peers reuse them
     __syncthreads();
@@ -584,17 +619,7 @@ fb_chains_kernel(const float* __restrict__ frames,
     if (warp == 0) {
       // the step's result: its rows of partial sums, in a fixed order
       float4 s = make_float4(total, total, total, total);
-      if (rows > 0 && owner) {
-        s = make_float4(0.f, 0.f, 0.f, 0.f);
-        const float4* part = reinterpret_cast<const float4*>(red) + lane;
-        for (int g = 0; g < rows; ++g) {
-          const float4 p = part[g * (per / 4)];
-          s.x += p.x;
-          s.y += p.y;
-          s.z += p.z;
-          s.w += p.w;
-        }
-      }
+      if (rows > 0 && owner) s = sum_rows(red, rows, per, lane);
       carry = make_float4(logf(fmaxf(s.x, TINY)) + m,
                           logf(fmaxf(s.y, TINY)) + m,
                           logf(fmaxf(s.z, TINY)) + m,
@@ -611,35 +636,31 @@ fb_chains_kernel(const float* __restrict__ frames,
       // the next step's breakend matrix: the cluster's blocks prefetch a
       // share of it each into L2
       if (lane == 0 && b_next >= num_static)
-        prefetch_share_l2(be_exp + (size_t)(b_next - num_static) * SS, SS,
-                          rank, C);
+        prefetch_share_l2(be_exp + (size_t)(b_next - num_static) * S * S,
+                          (size_t)S * S, rank, C);
       if (more) shift_push(step + 1, x, b_next);
     }
     TRACE(3);
   }
-#ifdef FB_CHAINS_TRACE
-  if (traced) {
-    spent[9] = global_ns();
-    for (int k = 0; k < TRACE_PARTS; ++k)
-      fb_chains_trace[2 * q + reverse][k] = spent[k];
-  }
-#endif
-#undef TRACE
+  TRACE_CLOSE
   // no block may leave while a peer can still write its shared memory
   cluster.sync();
 }
 
 // The scaled-linear kernel: fexp (Q, L, S) = exp(frame - fmax), fmax
-// (Q, L); grid, clusters and the rest as fb_chains_kernel.
+// (Q, L); the other arguments, grid, clusters and shared memory as
+// fb_chains_kernel's.
 __global__ void __launch_bounds__(1024)
 fb_chains_scaled_kernel(const float* __restrict__ fexp,
                         const float* __restrict__ fmax,
-                        const float* __restrict__ static_exp,
+                        const float* __restrict__ statics,
                         const float* __restrict__ be_exp,
                         const int* __restrict__ cbi,
+                        const int* __restrict__ resident,
                         float* __restrict__ alphas, float* __restrict__ betas,
-                        int L, int S, int Lm1, int num_static, int per) {
-  extern __shared__ float smem[];
+                        int L, int S, int Sp, int Lm1, int num_static,
+                        int per, int G) {
+  extern __shared__ float4 smem_chain[];
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
@@ -648,148 +669,202 @@ fb_chains_scaled_kernel(const float* __restrict__ fexp,
   const int lo = rank * per;
   const int n_own = max(0, min(per, S - lo));
 
-  float* pub = smem;                 // 2 x per: published product slice
-  float* stat = pub + 2 * per;       // 2 x 2: published (max, sum)
-  float* first = stat + 4;           // 1: sum of the first input vector
-  float* u = first + 1;              // S: the next product's input vector
-  float* red = u + S;                // blockDim.x: forward partial sums
+  // fb_chains_kernel's layout; u holds the pushed slices p_c, stat every
+  // peer's (m_c, sum(p_c), class of the step)
+  float* slice = reinterpret_cast<float*>(smem_chain);
+  float* u = slice + (size_t)S * per;
+  float* stat = u + 2 * Sp;
+  float* red = slice + chains_base_floats(S, per);
+  unsigned long long* bars = reinterpret_cast<unsigned long long*>(red) - 2;
 
-  const size_t SS = (size_t)S * S;
-  const float* E = fexp + (size_t)q * L * S;
+  const float* E = fexp + (size_t)q * L * S + lo;
   const float* FM = fmax + (size_t)q * L;
-  float* out = (reverse ? betas : alphas) + (size_t)q * L * S;
+  float* out = (reverse ? betas : alphas) + (size_t)q * L * S + lo;
   const int* bidx = cbi + (size_t)q * Lm1;
-  const int tid = threadIdx.x, nt = blockDim.x;
+  const int res = resident[q];
+  const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
-  const int JW = ((per + 31) / 32) * 32;
-  const int G = max(1, nt / JW);
+  // warp 0 keeps the block's slice of the product, a quad of own states a
+  // lane (w of them own)
+  const int w = n_own - 4 * lane;
+  const bool owner = warp == 0 && w > 0;
+  const unsigned step_bytes = 4u * Sp + 16u * C;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
 
-  // the first input: forward u = fexp[0] at scale fmax[0]; reverse u = 1
-  // at scale 0 (message 0), times fexp[L-1] folded in
-  const int t0 = reverse ? L - 1 : 0;
-  const float* e0 = E + (size_t)t0 * S;
-  float scale = reverse ? 0.f : FM[0];
-  for (int i = tid; i < S; i += nt) u[i] = e0[i];
-  for (int i = tid; i < n_own; i += nt)
-    out[(size_t)t0 * S + lo + i] =
-        reverse ? 0.f : logf(fmaxf(e0[lo + i], TINY)) + scale;
-  if (warp == 0) {
+  load_resident(slice, statics, res, reverse, num_static, S, Sp, lo, n_own,
+                per, bars);
+  cluster.sync();
+
+  // the lane's quad of fexp row `row`, 0 past the slice
+  auto frame_quad = [&](int row) {
+    return owner ? load_quad(E + (size_t)row * S + 4 * lane, w, 0.f) : zero;
+  };
+  // warp 0: push the block's slice s of a product (0 past the slice) for
+  // step `step`: p = s / max(m_c, TINY), reverse times the next product's
+  // frame quad f, into every peer's u, and (m_c, sum(p), class b) into
+  // every peer's statistics; with `full` false the statistics alone
+  auto publish = [&](int step, float4 s, float4 f, int b, bool full) {
+    const int buf = step & 1;
+    const float mc = warp_max(fmaxf(fmaxf(s.x, s.y), fmaxf(s.z, s.w)));
+    if (lane == 0) bar_expect(bars + buf, full ? step_bytes : 16u * C);
     float sum = 0.f;
-    for (int i = lane; i < S; i += 32) sum += e0[i];
-    sum = warp_sum(sum);
-    if (lane == 0) first[0] = sum;
-  }
-  __syncthreads();
-  float total = first[0];  // the cut class's sum of the input vector
-
-  for (int step = 1; step < L; ++step) {
-    const int t = reverse ? L - step : step;
-    const float* erow = E + (size_t)t * S;
-    // reverse: the output position's fexp, folded into the next input
-    const float* eout = E + (size_t)(t - 1) * S;
-    float* dst = out + (size_t)(reverse ? t - 1 : t) * S;
-    float* my_pub = pub + (step & 1) * per;
-    float* my_stat = stat + (step & 1) * 2;
-    __syncthreads();  // the input vector is gathered
-
-    const int b = bidx[t - 1];
-    if (b == 0) {
-      for (int j = tid; j < n_own; j += nt)
-        my_pub[j] = reverse ? total : total * erow[lo + j];
-    } else {
-      const float* M = b < num_static
-          ? static_exp + (size_t)b * SS
-          : be_exp + (size_t)(b - num_static) * SS;
-      if (!reverse) {
-        slice_forward(M, u, S, lo, n_own, JW, G, red,
-                      [&](int j, float s) { my_pub[j] = s * erow[lo + j]; });
-      } else {
-        slice_reverse(M, u, S, lo, n_own,
-                      [&](int i, float s) { my_pub[i] = s; });
-      }
-    }
-    __syncthreads();  // the slice is complete
-    if (warp == 0) {
-      float m = 0.f, sum = 0.f;
-      for (int i = lane; i < n_own; i += 32) {
-        const float x = my_pub[i];
-        m = fmaxf(m, x);
-        sum = reverse ? fmaf(x, eout[lo + i], sum) : sum + x;
-      }
-      m = warp_max(m);
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        my_stat[0] = m;
-        my_stat[1] = sum;
-      }
-    }
-    cluster.sync();
-
-    float m = TINY, sum = 0.f;
+    if (full && owner) {
+      const float r = 1.f / fmaxf(mc, TINY);
+      float4 p = make_float4(s.x * r, s.y * r, s.z * r, s.w * r);
+      if (reverse) p = mul4(p, f);
+      sum = p.x + p.y + p.z + p.w;
+      float* dst = u + buf * Sp + lo + 4 * lane;
 #pragma unroll
-    for (int c = 0; c < MAX_CLUSTER; ++c) {
-      if (c < C) {
-        const float* peer = cluster.map_shared_rank(my_stat, c);
-        m = fmaxf(m, peer[0]);
-        sum += peer[1];
-      }
+      for (int c = 0; c < MAX_CLUSTER; ++c)
+        if (c < C) push4(peer_addr(dst, c), p, peer_addr(bars + buf, c));
     }
-    const float inv = 1.f / m;
-    total = sum * inv;
-    scale = scale + logf(m) + FM[t];
-    for (int i = tid; i < S; i += nt) {
-      const int c = i / per;
-      const float x = cluster.map_shared_rank(my_pub, c)[i - c * per] * inv;
-      u[i] = reverse ? x * eout[i] : x;
+    sum = warp_sum(sum);
+    if (lane < C)
+      push4(peer_addr(stat + (buf * MAX_CLUSTER + rank) * 4, lane),
+            make_float4(mc, sum, __int_as_float(b), 0.f),
+            peer_addr(bars + buf, lane));
+  };
+
+  // warp 0's slice of the last product, raw, and the scale before it: the
+  // first vector is forward fexp[0] at scale fmax[0], reverse 1 at scale 0
+  float4 s = zero;
+  float scale = 0.f;
+  if (warp == 0) {
+    float4 f = zero;
+    if (reverse) {
+      s = own_quad(make_float4(1.f, 1.f, 1.f, 1.f), w);
+      if (L > 1) f = frame_quad(L - 1);
+    } else {
+      s = frame_quad(0);
     }
-    for (int j = tid; j < n_own; j += nt)
-      dst[lo + j] = logf(fmaxf(my_pub[j] * inv, TINY)) + scale;
+    publish(1, s, f, L > 1 ? bidx[reverse ? L - 2 : 0] : 0, L > 1);
   }
-  // no block may leave while a peer can still read its shared memory
+  TRACE_OPEN
+
+  // step L only writes the last row
+  for (int step = 1; step <= L; ++step) {
+    // the step's product: forward pair (t-1, t) gives position t, reverse
+    // position t-1, each from frame t
+    const int t = reverse ? L - step : step;
+    const int buf = step & 1;
+    float* my_u = u + buf * Sp;
+    const float* my_stat = stat + buf * MAX_CLUSTER * 4;
+    const bool last = step == L, more = step + 1 < L;
+    // warp 0 loads ahead what its epilogue needs: the fmax of the last
+    // product's position, the frame quad of this product (reverse: of the
+    // next, which the push folds in) and the class of the next step
+    float fm = 0.f;
+    float4 f = zero;
+    int b_next = 0;
+    if (warp == 0) {
+      if (!reverse) {
+        fm = FM[step - 1];
+      } else if (step > 1) {
+        fm = FM[t + 1];
+      }
+      if (reverse ? more : !last) f = frame_quad(reverse ? t - 1 : t);
+      if (more) b_next = bidx[(reverse ? t - 1 : t + 1) - 1];
+    }
+    TRACE(0);
+    bar_wait(bars + buf, ((step - 1) >> 1) & 1);
+    TRACE(1);
+
+    // the common normaliser and the class, in the peers' order
+    float mx = 0.f;
+#pragma unroll
+    for (int c = 0; c < MAX_CLUSTER; ++c)
+      if (c < C) mx = fmaxf(mx, my_stat[4 * c]);
+    const float m = fmaxf(mx, TINY);
+    // peer c's part of the input is its pushed slice times this
+    auto factor = [&](int c) { return fmaxf(my_stat[4 * c], TINY) / m; };
+    const int b = __float_as_int(my_stat[2]);
+    int rows = 0;
+    if (!last) {
+      TRACE_KIND(b);
+      if (b != 0)
+        rows = step_product(b, res, reverse, slice, statics, be_exp, my_u,
+                            factor, S, Sp, lo, n_own, per, C, G, num_static,
+                            red);
+    }
+    // as in fb_chains_kernel: the partial sums are written and every read
+    // of the step's buffers is done before warp 0 pushes the next step
+    __syncthreads();
+    TRACE(2);
+
+    if (warp == 0) {
+      // the last product's slice: its row is written after the push, off
+      // the peers' path
+      const float4 prev = s;
+      if (!last) {
+        // this step's slice: its rows of partial sums in a fixed order, or
+        // the cut class's sum of the input
+        if (rows > 0) {
+          s = owner ? sum_rows(red, rows, per, lane) : zero;
+        } else {
+          float total = 0.f;
+#pragma unroll
+          for (int c = 0; c < MAX_CLUSTER; ++c)
+            if (c < C) total = fmaf(my_stat[4 * c + 1], factor(c), total);
+          s = make_float4(total, total, total, total);
+        }
+        if (!reverse) s = mul4(s, f);
+        s = own_quad(s, w);
+        if (lane == 0 && b_next >= num_static)
+          prefetch_share_l2(be_exp + (size_t)(b_next - num_static) * S * S,
+                            (size_t)S * S, rank, C);
+        publish(step + 1, s, f, b_next, more);
+      }
+      // the last product's row, now that its normaliser is known
+      scale = scale + logf(m) + fm;
+      const float inv = 1.f / m;
+      if (owner)
+        store_quad(out + (size_t)(reverse ? t : t - 1) * S + 4 * lane, w,
+                   make_float4(logf(fmaxf(prev.x * inv, TINY)) + scale,
+                               logf(fmaxf(prev.y * inv, TINY)) + scale,
+                               logf(fmaxf(prev.z * inv, TINY)) + scale,
+                               logf(fmaxf(prev.w * inv, TINY)) + scale));
+    }
+    TRACE(3);
+  }
+  TRACE_CLOSE
+  // no block may leave while a peer can still write its shared memory
   cluster.sync();
 }
 
-// Grid (C, Q, 2) in clusters of C blocks of `threads`, `smem` bytes of
-// dynamic shared memory.
-template <typename Kernel, typename... Args>
-int launch(Kernel kernel, size_t smem, int Q, int cluster, int threads,
-           void* stream, Args... args) {
-  if (cluster < 1 || cluster > MAX_CLUSTER || threads % 32 != 0)
-    return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+// Either kernel on grid (cluster, Q, 2) in clusters of `cluster` blocks.
+struct ClusterLaunch {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster, Q, 2);
-  cfg.blockDim = dim3(threads, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = (cudaStream_t)stream;
   cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  ClusterLaunch(int Q, int cluster, int threads, int smem, void* stream) {
+    cfg.gridDim = dim3(cluster, Q, 2);
+    cfg.blockDim = dim3(threads, 1, 1);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = (cudaStream_t)stream;
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = cluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+};
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
-}  // namespace
-
-// Grid (cluster, Q, 2) in clusters of `cluster` blocks of `threads`,
-// `smem` bytes of dynamic shared memory: chains_base_floats and red, the
+// Launches either kernel, with its input pointers `ptrs` before the
+// outputs' sizes, in clusters of `cluster` blocks of `threads` and `smem`
+// bytes of dynamic shared memory: chains_base_floats and red, the
 // products' partial sums of as many row groups as fit, the same number for
 // each peer, at least one.
-extern "C" int fb_chains_launch(const float* frames, const float* statics,
-                                const float* be_exp, const int* cbi,
-                                const int* resident, float* alphas,
-                                float* betas, int Q, int L, int S, int Lm1,
-                                int num_static, int cluster, int threads,
-                                int smem, void* stream) {
+template <typename Kernel, typename... Ptrs>
+int launch_chains(Kernel kernel, int Q, int L, int S, int Lm1,
+                  int num_static, int cluster, int threads, int smem,
+                  void* stream, Ptrs... ptrs) {
   if (cluster < 1 || cluster > MAX_CLUSTER) return (int)cudaErrorInvalidValue;
   const int per = ((S + cluster - 1) / cluster + 3) / 4 * 4;
   if (threads % 32 != 0 || threads > 1024 || per > 128)
@@ -801,48 +876,62 @@ extern "C" int fb_chains_launch(const float* frames, const float* statics,
   const int Gc = (int)min((size_t)min(threads / (per / 4) / cluster, per),
                           red / ((size_t)per * cluster));
   if (Gc < 1) return (int)cudaErrorInvalidValue;
-  return launch(fb_chains_kernel, smem, Q, cluster, threads, stream, frames,
-                statics, be_exp, cbi, resident, alphas, betas, L, S,
-                (S + 3) / 4 * 4, Lm1, num_static, per, Gc * cluster);
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  ClusterLaunch launch(Q, cluster, threads, smem, stream);
+  err = cudaLaunchKernelEx(&launch.cfg, kernel, ptrs..., L, S,
+                           (S + 3) / 4 * 4, Lm1, num_static, per,
+                           Gc * cluster);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
-// How many clusters of fb_chains_kernel the card holds at once at this
-// cluster size, block and shared memory (cudaOccupancyMaxActiveClusters).
-extern "C" int fb_chains_max_active_clusters(int cluster, int threads,
-                                             int smem, int* clusters) {
+template <typename Kernel>
+int max_active(Kernel kernel, int cluster, int threads, int smem,
+               int* clusters) {
   if (cluster < 1 || cluster > MAX_CLUSTER) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        fb_chains_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster, 1, 2);
-  cfg.blockDim = dim3(threads, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return (int)cudaOccupancyMaxActiveClusters(
-      clusters, (const void*)fb_chains_kernel, &cfg);
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  ClusterLaunch launch(1, cluster, threads, smem, nullptr);
+  return (int)cudaOccupancyMaxActiveClusters(clusters, (const void*)kernel,
+                                             &launch.cfg);
+}
+
+}  // namespace
+
+extern "C" int fb_chains_launch(const float* frames, const float* statics,
+                                const float* be_exp, const int* cbi,
+                                const int* resident, float* alphas,
+                                float* betas, int Q, int L, int S, int Lm1,
+                                int num_static, int cluster, int threads,
+                                int smem, void* stream) {
+  return launch_chains(fb_chains_kernel, Q, L, S, Lm1, num_static, cluster,
+                       threads, smem, stream, frames, statics, be_exp, cbi,
+                       resident, alphas, betas);
 }
 
 extern "C" int fb_chains_scaled_launch(const float* fexp, const float* fmax,
-                                       const float* static_exp,
+                                       const float* statics,
                                        const float* be_exp, const int* cbi,
-                                       float* alphas, float* betas,
-                                       int Q, int L, int S, int Lm1,
-                                       int num_static, int cluster,
-                                       int threads, void* stream) {
-  const int per = cluster > 0 ? (S + cluster - 1) / cluster : 0;
-  const size_t smem = ((size_t)2 * per + 5 + S + threads) * sizeof(float);
-  return launch(fb_chains_scaled_kernel, smem, Q, cluster, threads, stream,
-                fexp, fmax, static_exp, be_exp, cbi, alphas, betas, L, S, Lm1,
-                num_static, per);
+                                       const int* resident, float* alphas,
+                                       float* betas, int Q, int L, int S,
+                                       int Lm1, int num_static, int cluster,
+                                       int threads, int smem, void* stream) {
+  return launch_chains(fb_chains_scaled_kernel, Q, L, S, Lm1, num_static,
+                       cluster, threads, smem, stream, fexp, fmax, statics,
+                       be_exp, cbi, resident, alphas, betas);
+}
+
+// How many clusters of the log-space kernel (or with `scaled` the scaled
+// one) the card holds at once at this cluster size, block and shared
+// memory (cudaOccupancyMaxActiveClusters).
+extern "C" int fb_chains_max_active_clusters(int scaled, int cluster,
+                                             int threads, int smem,
+                                             int* clusters) {
+  return scaled ? max_active(fb_chains_scaled_kernel, cluster, threads, smem,
+                             clusters)
+                : max_active(fb_chains_kernel, cluster, threads, smem,
+                             clusters);
 }
 
 #ifdef FB_CHAINS_TRACE

@@ -32,8 +32,9 @@ recursion and the per-chain beta shift of ``ops/fb_grouped.py``, whose
 frame gather and output scatter it reuses at one restart. The switch
 ``fb_grouped.SCALED_LINEAR`` selects the scaled-linear recursion here too:
 the counterpart of ``_fb_kernel_scaled`` (``fb_pallas.py:260``), computed by
-a second kernel of ``csrc/fb_chains.cu``, which keeps the earlier design
-(no residency, pulled slices).
+a second kernel of ``csrc/fb_chains.cu`` on the same clusters, launch plan
+and resident classes, which pushes its slice of each step's product and
+writes each row one step late, once the product's normaliser is known.
 """
 
 import ctypes
@@ -47,12 +48,10 @@ from remixt_tpu_torch.ops import fb_grouped
 LAUNCHES = 0
 LAUNCHES_SCALED = 0
 
-#: thread blocks per (chain, direction) cluster on the main path: at
-#: whole-genome width the one size at which the card holds all 46 clusters
-#: at once (``chip_smoke.py`` phase 2b)
+#: thread blocks per (chain, direction) cluster of both kernels on the main
+#: path: at whole-genome width the one size at which the card holds all 46
+#: clusters at once (``chip_smoke.py`` phases 2b and 2d)
 CLUSTER = 5
-#: the same for the scaled kernel, which keeps the earlier design
-SCALED_CLUSTER = 4
 
 
 def fb_chains_reference(frames, static_exp, be_exp, chain_bank_idx):
@@ -73,18 +72,8 @@ def fb_chains_scaled_reference(frames, static_exp, be_exp, chain_bank_idx):
     return alphas[0], betas[0]
 
 
-def _launch_threads(S, cluster):
-    """Threads per block of the scaled kernel: whole warps over the block's
-    column slice, times as many row groups as give the cluster about 2048
-    threads (all 46 clusters of the whole-genome problem then fit on the
-    card at once)."""
-    per = -(-S // cluster)
-    span = -(-per // 32) * 32
-    return min(1024, span * max(1, 2048 // cluster // span))
-
-
 def chains_base_floats(S, per):
-    """Shared memory of the log-space kernel before its partial sums, in
+    """Shared memory of both kernels before their partial sums, in
     floats, as ``chains_base_floats`` of ``csrc/fb_chains.cu`` counts it:
     the resident slice (S x per), u (2 x Sp, S rounded up to a multiple of
     4), the peers' (max, sum, class) (2 x 8 x 4) and the two exchange
@@ -93,7 +82,7 @@ def chains_base_floats(S, per):
 
 
 def launch_plan(S, cluster):
-    """Block and shared memory of the log-space kernel for S states on
+    """Block and shared memory of both kernels for S states on
     clusters of ``cluster`` blocks (the grid is cluster x Q x 2). Each block
     owns ``per`` states, a multiple of 4 (the products read 4 columns at
     once), and holds the resident class's column slice of them. Threads:
@@ -142,16 +131,18 @@ def resident_classes(chain_bank_idx, num_static, steps):
     return torch.where(most > 0, best + 1, -1).to(torch.int32)
 
 
-def max_active_clusters(S, cluster):
-    """How many clusters of the log-space kernel the card holds at once at
-    ``launch_plan(S, cluster)`` (``cudaOccupancyMaxActiveClusters``)."""
+def max_active_clusters(S, cluster, scaled=False):
+    """How many clusters of the log-space kernel (or with ``scaled`` the
+    scaled one) the card holds at once at ``launch_plan(S, cluster)``
+    (``cudaOccupancyMaxActiveClusters``)."""
     from remixt_tpu_torch.ops import _build
     plan = launch_plan(S, cluster)
     fn = _build.load('fb_chains').fb_chains_max_active_clusters
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
     count = ctypes.c_int(0)
-    err = fn(cluster, plan['threads'], plan['smem_bytes'], ctypes.byref(count))
+    err = fn(int(scaled), cluster, plan['threads'], plan['smem_bytes'],
+             ctypes.byref(count))
     if err != 0:
         raise RuntimeError('fb_chains occupancy query failed: error {}'.format(
             err))
@@ -166,9 +157,7 @@ def launcher(frames, static_exp, be_exp, chain_bank_idx, cluster=None,
     ``defines``) into the outputs and counts the launch. The checks, the
     launch plan, the padded statics, the resident classes and the outputs
     are made here, once. Raises on anything the kernel cannot serve."""
-    if cluster is None:
-        cluster = SCALED_CLUSTER if scaled else CLUSTER
-    cluster = int(cluster)
+    cluster = CLUSTER if cluster is None else int(cluster)
     if not 1 <= cluster <= 8:
         raise ValueError('cluster must be 1 to 8, got {}'.format(cluster))
     Q, L, S = frames.shape
@@ -178,26 +167,23 @@ def launcher(frames, static_exp, be_exp, chain_bank_idx, cluster=None,
     if Q == 0:
         return (lambda: None), (alphas, betas)
 
+    plan = launch_plan(S, cluster)
     num_static = static_exp.shape[0]
-    # a breakend-free problem still needs a valid pointer
-    be = be_exp if be_exp.shape[0] else frames.new_zeros(1)
-    # the arguments both launchers take, from the schedule to the cluster
-    common = (chain_bank_idx, alphas, betas, Q, L, S, chain_bank_idx.shape[1],
-              num_static, cluster)
     if scaled:
         fn, err_string = fb_grouped.load_launcher(
-            'fb_chains', 'fb_chains_scaled_launch', 7, 7, defines)
-        fexp, fmax = fb_grouped.shift_frames(frames)
-        args = (fexp, fmax, static_exp, be) + common + (
-            _launch_threads(S, cluster),)
+            'fb_chains', 'fb_chains_scaled_launch', 8, 8, defines)
+        inputs = fb_grouped.shift_frames(frames)
     else:
-        plan = launch_plan(S, cluster)
         fn, err_string = fb_grouped.load_launcher(
             'fb_chains', 'fb_chains_launch', 7, 8, defines)
-        resident = resident_classes(chain_bank_idx, num_static, L - 1)
-        args = (frames, fb_grouped.pad_statics(static_exp), be,
-                chain_bank_idx, resident) + common[1:] + (
-                    plan['threads'], plan['smem_bytes'])
+        inputs = (frames,)
+    # a breakend-free problem still needs a valid pointer
+    be = be_exp if be_exp.shape[0] else frames.new_zeros(1)
+    resident = resident_classes(chain_bank_idx, num_static, L - 1)
+    args = tuple(inputs) + (
+        fb_grouped.pad_statics(static_exp), be, chain_bank_idx, resident,
+        alphas, betas, Q, L, S, chain_bank_idx.shape[1], num_static, cluster,
+        plan['threads'], plan['smem_bytes'])
     stream = torch.cuda.current_stream(frames.device).cuda_stream
     values = [x.data_ptr() if torch.is_tensor(x) else x for x in args]
 
@@ -233,8 +219,7 @@ def fb_chains_scaled_cuda(frames, static_exp, be_exp, chain_bank_idx,
                           cluster=None):
     """Launch the scaled CUDA kernel on chain-major inputs; same contract
     as :func:`fb_chains_scaled_reference`, and the launch rules of
-    :func:`fb_chains_cuda` (``None`` means ``SCALED_CLUSTER``). The frame
-    shift runs here, in torch."""
+    :func:`fb_chains_cuda`. The frame shift runs here, in torch."""
     run, out = launcher(frames, static_exp, be_exp, chain_bank_idx, cluster,
                         scaled=True)
     run()
@@ -246,19 +231,22 @@ TRACE_COLUMNS = ('loads', 'exchange', 'product', 'epilogue', 'cut',
                  'resident', 'static', 'breakend', 'start_ns', 'end_ns')
 
 
-def trace(frames, static_exp, be_exp, chain_bank_idx, cluster=None):
-    """One launch of the log-space kernel built with ``FB_CHAINS_TRACE``
-    on chain-major CUDA inputs: per (chain, direction), rows 2q and 2q + 1
+def trace(frames, static_exp, be_exp, chain_bank_idx, cluster=None,
+          scaled=False):
+    """One launch of the log-space kernel (or with ``scaled`` the scaled
+    one) built with ``FB_CHAINS_TRACE`` on chain-major CUDA inputs: per
+    (chain, direction), rows 2q and 2q + 1
     of a (2Q, 10) int64 array, the cycles its steps spent in each part
     (``TRACE_COLUMNS``: warp 0's loads of the next step's inputs, the
     exchange's wait, the product with its block barrier, warp 0's epilogue,
-    shift and push), its number of cut, resident, other static and
-    breakend steps, and the nanoseconds at its start and end. Chains past
-    the 64th are not traced."""
+    shift and push; the scaled kernel's epilogue writes the last
+    product's row there too), its number of cut, resident, other static
+    and breakend steps, and the nanoseconds at its start and end. Chains
+    past the 64th are not traced."""
     from remixt_tpu_torch.ops import _build
     defines = ('FB_CHAINS_TRACE',)
     run, out = launcher(frames, static_exp, be_exp, chain_bank_idx, cluster,
-                        defines=defines)
+                        scaled=scaled, defines=defines)
     run()
     torch.cuda.synchronize(frames.device)
     fn = _build.load('fb_chains', defines).fb_chains_trace_read

@@ -9,11 +9,11 @@
 (b) its plain version in float64 against the JAX chain scan, atol 1e-9;
 (c) the wrapper takes the plain version for CPU tensors, the module imports
     without nvcc or a GPU, and the CUDA route checks its inputs;
-(d) the launch plan matches the kernel source's layout and launcher, fits
-    three blocks a multiprocessor on the main path and refuses a cluster
-    whose resident slice does not fit; the resident classes are chosen on
-    the device with no host sync; the wrapper passes the launchers' C
-    signatures.
+(d) the launch plan matches the kernel source's layout and launcher (both
+    kernels launch through one ``launch_chains``), fits three blocks a
+    multiprocessor at cluster size 8 and refuses a cluster whose resident
+    slice does not fit; the resident classes are chosen on the device with
+    no host sync; the wrapper passes both launchers' C signatures.
 
 The CUDA kernel itself is held against the plain version on the card by
 ``chip_smoke.py``.
@@ -156,24 +156,23 @@ def test_cuda_path_checks_its_inputs(bad):
 
 
 def launcher_body(source, name):
-    """The body of ``extern "C"`` function ``name`` in the kernel source."""
-    return re.search(r'extern "C" int ' + name + r'\([^)]*\) \{(.*?)\n\}',
-                     source, re.S).group(1)
+    """The body of function ``name`` (an ``extern "C"`` launcher or the
+    ``launch_chains`` template both call) in the kernel source."""
+    return re.search(r'\bint ' + name + r'\([^)]*\) \{(.*?)\n\}', source,
+                     re.S).group(1)
 
 
-@pytest.mark.parametrize('cluster', [3, 4, 5, 6, 7, 8])
-@pytest.mark.parametrize('S', [7, 47, 355])
-def test_launch_plan_matches_the_kernel_source(S, cluster):
-    """The Python plan and the CUDA launcher lay shared memory out alike:
-    the block's slice, the floats before the partial sums
-    (``chains_base_floats``) and the products' row groups, the same number
-    for each block of the cluster, the launcher's own formulas evaluated
-    from ``csrc/fb_chains.cu``; and the plan passes the launcher's checks
-    of threads and partial sums."""
+def plan_matches_source(S, cluster):
+    """Hold ``launch_plan(S, cluster)`` to the launcher's own formulas,
+    evaluated from ``launch_chains`` in ``csrc/fb_chains.cu``: the block's
+    slice, the floats before the partial sums (``chains_base_floats``) and
+    the products' row groups, the same number for each block of the
+    cluster; and check that the plan passes the launcher's checks of
+    threads and partial sums. Returns the source."""
     source = (CSRC / 'fb_chains.cu').read_text()
     consts = {name: int(value) for name, value in
               re.findall(r'constexpr int (\w+) = (\d+);', source)}
-    body = launcher_body(source, 'fb_chains_launch')
+    body = launcher_body(source, 'launch_chains')
     plan = fb_chains.launch_plan(S, cluster)
     env = dict(consts, S=S, cluster=cluster, min=min)
     per = eval(c_expression(body, r'const int per = ([^;]*);'), env)
@@ -192,6 +191,38 @@ def test_launch_plan_matches_the_kernel_source(S, cluster):
     assert eval(c_expression(body, r'const int Gc = ([^;]*);'),
                 env) * cluster == groups >= cluster
     assert plan['smem_bytes'] <= fb_grouped.SMEM_LIMIT
+    return source
+
+
+@pytest.mark.parametrize('cluster', [3, 4, 5, 6, 7, 8])
+@pytest.mark.parametrize('S', [7, 47, 355])
+def test_launch_plan_matches_the_kernel_source(S, cluster):
+    """The Python plan and the CUDA launcher lay shared memory out alike:
+    the block's slice, the floats before the partial sums
+    (``chains_base_floats``) and the products' row groups, the same number
+    for each block of the cluster, the launcher's own formulas evaluated
+    from ``csrc/fb_chains.cu``; and the plan passes the launcher's checks
+    of threads and partial sums. The log-space launcher launches
+    ``fb_chains_kernel`` through those formulas."""
+    source = plan_matches_source(S, cluster)
+    assert re.search(r'launch_chains\(fb_chains_kernel,',
+                     launcher_body(source, 'fb_chains_launch'))
+
+
+@pytest.mark.parametrize('cluster', [3, 4, 5, 6, 7, 8])
+@pytest.mark.parametrize('S', [7, 47, 355])
+def test_scaled_launch_plan_matches_the_kernel_source(S, cluster):
+    """The same for the scaled kernel: its launcher launches
+    ``fb_chains_scaled_kernel`` through ``launch_chains``'s formulas, and
+    the kernel lays its shared memory out as ``chains_base_floats``
+    counts it, its partial sums after them."""
+    source = plan_matches_source(S, cluster)
+    assert re.search(r'launch_chains\(fb_chains_scaled_kernel,',
+                     launcher_body(source, 'fb_chains_scaled_launch'))
+    kernel = re.search(r'fb_chains_scaled_kernel\((.*?)\n\}', source,
+                       re.S).group(1)
+    assert 'float* red = slice + chains_base_floats(S, per);' in kernel
+    assert 'float* u = slice + (size_t)S * per;' in kernel
 
 
 @pytest.mark.parametrize('cluster', [1, 2])
@@ -254,7 +285,8 @@ def test_resident_classes_without_static_steps():
 def test_launch_passes_the_c_signature(monkeypatch, scaled):
     """The wrapper hands the launcher the arguments its ``extern "C"``
     signature in ``csrc/fb_chains.cu`` names, as many pointers and ints:
-    the log-space kernel the padded statics and the resident classes, and
+    the frames (the scaled kernel: ``fexp`` and ``fmax`` of
+    ``shift_frames``), the padded statics and the resident classes, and
     the cluster, threads and shared memory of ``launch_plan`` last before
     the stream. The library and the stream are stubbed: no kernel runs
     here."""
@@ -288,6 +320,8 @@ def test_launch_passes_the_c_signature(monkeypatch, scaled):
                         recorded('statics', fb_grouped.pad_statics))
     monkeypatch.setattr(fb_chains, 'resident_classes',
                         recorded('resident', fb_chains.resident_classes))
+    monkeypatch.setattr(fb_grouped, 'shift_frames',
+                        recorded('shift', fb_grouped.shift_frames))
     monkeypatch.setattr(torch.cuda, 'current_stream', lambda device: Stream)
     monkeypatch.setattr(torch.cuda, 'device',
                         lambda device: contextlib.nullcontext())
@@ -305,16 +339,19 @@ def test_launch_passes_the_c_signature(monkeypatch, scaled):
     assert (by_name['Q'], by_name['L'], by_name['S'], by_name['Lm1'],
             by_name['num_static'], by_name['cluster']) == (Q, L, S, 4, 3, 3)
     assert by_name['cbi'] == cbi.data_ptr()
+    plan = fb_chains.launch_plan(S, 3)
+    assert args[-4:-1] == (3, plan['threads'], plan['smem_bytes'])
+    assert by_name['statics'] == made['statics'].data_ptr()
+    assert made['statics'].shape == (2, 3, S, 8)
+    assert by_name['resident'] == made['resident'].data_ptr()
+    assert made['resident'].tolist() == [2, 1]
     if scaled:
-        assert by_name['static_exp'] == static_exp.data_ptr()
-        assert not made
+        fexp, fmax = made['shift']
+        assert (by_name['fexp'], by_name['fmax']) == (fexp.data_ptr(),
+                                                      fmax.data_ptr())
+        assert fexp.shape == (Q, L, S) and fmax.shape == (Q, L)
         assert fb_chains.LAUNCHES_SCALED == before[1] + 1
     else:
-        plan = fb_chains.launch_plan(S, 3)
-        assert args[-4:-1] == (3, plan['threads'], plan['smem_bytes'])
         assert by_name['frames'] == frames.data_ptr()
-        assert by_name['statics'] == made['statics'].data_ptr()
-        assert made['statics'].shape == (2, 3, S, 8)
-        assert by_name['resident'] == made['resident'].data_ptr()
-        assert made['resident'].tolist() == [2, 1]
+        assert 'shift' not in made
         assert fb_chains.LAUNCHES == before[0] + 1
