@@ -1,11 +1,19 @@
-"""Fit pipeline: the restart-grid fit, the one-restart fit job and
-per-restart results (torch).
+"""Fit pipeline: the restart grid, the restart-grid fit, the one-restart
+fit job, and collation into the results store (numpy and torch).
 
-Counterpart of ``fit_task``, ``fit``, ``fit_many`` and their helpers in
-``remixt_tpu/analysis/pipeline.py``. The grid runs through the batched
-restart fit (``models/fit_batched.py``) in padded waves, or one restart
-at a time through ``BreakpointModel.fit`` on one shared model
-(``batch_restarts: false``, a grid of one restart,
+Counterpart of ``remixt_tpu/analysis/pipeline.py`` without pandas: the
+restart grid (minor-depth modes x tumour mix fractions, ploidy-filtered
+with a common max depth, crossed with divergence weights), the per-restart
+fits, and the results tables in the JAX package's HDF5 schema (``stats``,
+``read_depth``, ``minor_modes``,
+``solutions/solution_{i}/{cn,brk_cn,h,mix}`` and the chosen solution's
+``cn``, ``mix`` and ``brk_cn``). ``init`` and ``collate`` are a table
+builder (``init_tables``, ``collate_tables``, host-only numpy) followed by
+the writer ``write_store``.
+
+The grid runs through the batched restart fit (``models/fit_batched.py``)
+in padded waves, or one restart at a time through ``BreakpointModel.fit``
+on one shared model (``batch_restarts: false``, a grid of one restart,
 ``optimal_initialization``).
 """
 
@@ -15,10 +23,126 @@ import pickle
 import numpy as np
 
 import remixt_tpu_torch.config
+from remixt_tpu_torch.analysis import experiment as experiment_tables
+from remixt_tpu_torch.analysis import readdepth
 from remixt_tpu_torch.device import resolve_device, resolve_dtype
+from remixt_tpu_torch.io.hdf5 import read_store, write_store
+from remixt_tpu_torch.io.table import Series, Table
 from remixt_tpu_torch.models.fit import (
     BreakpointModel, decode_breakpoints_naive)
 from remixt_tpu_torch.models.fit_batched import fit_restarts_batched
+
+INIT_COLUMNS = ['mode_idx', 'h_normal', 'h_tumour', 'mix_frac',
+                'divergence_weight', 'max_depth']
+
+
+def _load_pickle(filename):
+    with open(filename, 'rb') as f:
+        return pickle.load(f)
+
+
+def enumerate_restarts(experiment, config):
+    """The restart grid as a Table.
+
+    One row per (minor-depth mode, tumour mix fraction, divergence weight)
+    surviving the ploidy window (the modes nearest to it when none is
+    inside), in that nesting order, all sharing the smallest per-mode
+    maximum modellable depth so that the restarts' objectives compare.
+
+    Returns (grid, read_depth table, minor_modes).
+    """
+    get = lambda name: remixt_tpu_torch.config.get_param(config, name)
+    min_ploidy, max_ploidy = get('min_ploidy'), get('max_ploidy')
+
+    read_depth = readdepth.calculate_depth(experiment)
+    minor_modes, mode_masses = readdepth.calculate_minor_modes(
+        read_depth, return_masses=True,
+        random_seed=config.get('random_seed', 1234))
+    h_candidates = readdepth.calculate_candidate_h_monoclonal(
+        minor_modes, h_normal=get('h_normal'), h_tumour=get('h_tumour'),
+        mode_masses=mode_masses,
+        normal_mass_tolerance=get('normal_mode_mass_tolerance'))
+
+    h_normal = np.array([h[0] for h in h_candidates], dtype=float)
+    h_tumour = np.array([h[1] for h in h_candidates], dtype=float)
+    ploidy = np.array([readdepth.estimate_ploidy(h, experiment)
+                       for h in h_candidates], dtype=float)
+    if not np.all(np.isfinite(ploidy)):
+        raise ValueError('non-finite ploidy estimate')
+    max_depth = 2. * h_normal + (get('max_copy_number') + 0.25) * h_tumour
+
+    # distance to the allowed ploidy window; keep in-window modes, falling
+    # back to the nearest modes when the window is empty
+    distance = np.zeros(len(h_candidates))
+    if min_ploidy is not None:
+        distance = np.maximum(distance, np.clip(min_ploidy - ploidy, 0., None))
+    if max_ploidy is not None:
+        distance = np.maximum(distance, np.clip(ploidy - max_ploidy, 0., None))
+    in_window = distance == 0.
+    modes = np.flatnonzero(
+        in_window if in_window.any() or len(distance) == 0
+        else distance == distance.min())
+
+    rows = [(m, mix_frac, weight)
+            for m in modes
+            for mix_frac in get('tumour_mix_fractions')
+            for weight in get('divergence_weights')]
+    mode_idx = np.array([r[0] for r in rows], dtype=np.int64)
+    grid = Table([
+        ('mode_idx', mode_idx),
+        ('h_normal', h_normal[mode_idx]),
+        ('h_tumour', h_tumour[mode_idx]),
+        ('ploidy_estimate', ploidy[mode_idx]),
+        ('max_depth', np.full(len(rows), max_depth[modes].min()
+                              if len(modes) else np.nan)),
+        ('mix_frac', np.array([r[1] for r in rows], dtype=float)),
+        ('divergence_weight', np.array([r[2] for r in rows], dtype=float)),
+    ])
+    return grid, read_depth, minor_modes
+
+
+def _check_depth_coverage(experiment, max_depth, min_coverage=0.75):
+    """Refuse configurations where too much of the genome exceeds the
+    modellable depth."""
+    depth = experiment.x[:, 2] / experiment.l
+    covered = (
+        ((depth <= max_depth) * experiment.l).sum() / experiment.l.sum())
+    if covered < min_coverage:
+        raise ValueError(
+            'Unable to model {} of the genome, consider reducing max ploidy '
+            'or increasing max copy number'.format(1. - covered))
+
+
+def init_tables(experiment, config):
+    """The restart grid and the depth diagnostics of the init store.
+
+    Returns ({init_id: params dict with ``INIT_COLUMNS``},
+    {'read_depth': Table, 'minor_modes': Series}).
+    """
+    grid, read_depth, minor_modes = enumerate_restarts(experiment, config)
+    if len(grid) == 0:
+        raise ValueError('the restart grid is empty: no candidate haploid '
+                         'depths')
+    _check_depth_coverage(experiment, grid['max_depth'][0])
+    init_params = {
+        init_id: {c: grid[c][init_id].item() for c in INIT_COLUMNS}
+        for init_id in range(len(grid))}
+    tables = {'read_depth': read_depth,
+              'minor_modes': Series(minor_modes)}
+    return init_params, tables
+
+
+def init(init_results_filename, experiment_filename, config):
+    """Enumerate the restart grid of the pickled experiment and write its
+    depth diagnostics to the store ``init_results_filename``.
+
+    Returns {init_id: params dict} with keys mode_idx, h_normal, h_tumour,
+    mix_frac, divergence_weight, max_depth.
+    """
+    init_params, tables = init_tables(_load_pickle(experiment_filename),
+                                      config)
+    write_store(init_results_filename, tables)
+    return init_params
 
 
 def fit_task(results_filename, experiment_filename, init_params, config,
@@ -28,8 +152,7 @@ def fit_task(results_filename, experiment_filename, init_params, config,
     its results. A snapshot is written next to the results after every EM
     iteration, a killed job resumes from it, and it is removed once the
     results are on disk."""
-    with open(experiment_filename, 'rb') as f:
-        experiment = pickle.load(f)
+    experiment = _load_pickle(experiment_filename)
     snapshot_filename = results_filename + '.ckpt'
     fit_results = fit(experiment, init_params, config,
                       snapshot_filename=snapshot_filename, device=device)
@@ -217,3 +340,74 @@ def _extract_results(model, experiment, init_params, config):
         'allele_likelihood_mask': model.allele_likelihood_mask,
         'stats': stats,
     }
+
+
+def store_fit_results(tables, experiment, fit_results, key_prefix):
+    """Put one solution's tables (``cn``, ``brk_cn``, ``h``, ``mix``)
+    under ``key_prefix`` in ``tables``, a dict or a store."""
+    h = fit_results['h']
+    cn_table = experiment_tables.create_cn_table(
+        experiment, fit_results['cn'], h)
+    cn_table['prob_is_outlier_total'] = fit_results['p_outlier_total'][:, 1]
+    cn_table['prob_is_outlier_allele'] = fit_results['p_outlier_allele'][:, 1]
+    cn_table['total_likelihood_mask'] = fit_results['total_likelihood_mask']
+    cn_table['allele_likelihood_mask'] = fit_results['allele_likelihood_mask']
+
+    tables[key_prefix + '/cn'] = cn_table
+    tables[key_prefix + '/brk_cn'] = experiment_tables.create_brk_cn_table(
+        fit_results['brk_cn'], experiment.breakpoint_segment_data)
+    tables[key_prefix + '/h'] = Series(h)
+    tables[key_prefix + '/mix'] = Series(h / h.sum())
+
+
+def optimal_init_id(stats, config):
+    """The chosen restart: the first largest ELBO among restarts whose
+    proportion divergent is under ``max_prop_diverge``, or among all
+    restarts when none is."""
+    max_prop_diverge = remixt_tpu_torch.config.get_param(
+        config, 'max_prop_diverge')
+    candidates = np.flatnonzero(stats['proportion_divergent']
+                                < max_prop_diverge)
+    if len(candidates) == 0:
+        candidates = np.arange(len(stats))
+    best = candidates[np.nanargmax(stats['elbo'][candidates])]
+    return stats['init_id'][best]
+
+
+def store_optimal_solution(stats, tables, config):
+    """Alias the chosen solution's ``cn``, ``mix`` and ``brk_cn`` at the
+    top of ``tables``."""
+    best = optimal_init_id(stats, config)
+    for name in ('cn', 'mix', 'brk_cn'):
+        tables[name] = tables['solutions/solution_{}/{}'.format(best, name)]
+
+
+def collate_tables(experiment, fit_results_by_id, init_tables, config):
+    """The results store's tables: ``stats`` (one row per restart, its
+    ``init_id`` last), the init store's tables ``init_tables``, each
+    solution's tables and the chosen solution's.
+
+    Returns {key: Table or Series}.
+    """
+    stats = Table.from_records([
+        dict(results['stats'], init_id=init_id)
+        for init_id, results in fit_results_by_id.items()])
+    tables = {'stats': stats}
+    tables.update(init_tables)
+    for init_id, results in fit_results_by_id.items():
+        store_fit_results(tables, experiment, results,
+                          'solutions/solution_{}'.format(init_id))
+    store_optimal_solution(stats, tables, config)
+    return tables
+
+
+def collate(collate_filename, experiment_filename, init_results_filename,
+            fit_results_filenames, config):
+    """Merge the pickled per-restart results and the init store into the
+    results store ``collate_filename``."""
+    fit_results_by_id = {
+        init_id: _load_pickle(filename)
+        for init_id, filename in fit_results_filenames.items()}
+    write_store(collate_filename, collate_tables(
+        _load_pickle(experiment_filename), fit_results_by_id,
+        read_store(init_results_filename), config))

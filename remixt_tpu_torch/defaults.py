@@ -61,3 +61,8 @@ batch_restarts = True
 # Restarts advanced together per batched chunk (the wave); every chunk is
 # padded to this size
 restart_chunk_size = 8
+
+# Try every minor-depth mode with at most this mass fraction strictly below
+# it as the normal-depth anchor of the restart grid; 0 anchors the smallest
+# mode alone
+normal_mode_mass_tolerance = 0.05

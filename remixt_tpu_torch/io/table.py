@@ -1,0 +1,232 @@
+"""Ordered column tables and a TSV reader, without pandas.
+
+The port's stand-in for the parts of pandas' ``DataFrame`` and ``Series``
+that the experiment, the read-depth table and the results store use. A
+:class:`Table` is an ordered mapping of column name to a 1-D numpy array,
+all of one length, with an index array and an index name; strings are
+object arrays of ``str``, as pandas holds them. :func:`read_tsv` stands in
+for ``pd.read_csv(sep='\\t', converters=...)`` and infers column types as
+pandas does.
+"""
+
+import csv
+import re
+
+import numpy as np
+
+# pandas' default missing-value markers (``pd.read_csv``'s na_values)
+_NA_FIELDS = frozenset([
+    '', '#N/A', '#N/A N/A', '#NA', '-1.#IND', '-1.#QNAN', '-NaN', '-nan',
+    '1.#IND', '1.#QNAN', '<NA>', 'N/A', 'NA', 'NULL', 'NaN', 'None', 'n/a',
+    'nan', 'null'])
+_TRUE_FIELDS = frozenset(['True', 'TRUE', 'true'])
+_FALSE_FIELDS = frozenset(['False', 'FALSE', 'false'])
+_INF_FIELDS = {'inf': np.inf, '+inf': np.inf, 'infinity': np.inf,
+               '+infinity': np.inf, '-inf': -np.inf, '-infinity': -np.inf}
+_INT_FIELD = re.compile(r'^\s*[+-]?[0-9]+\s*$')
+_FLOAT_FIELD = re.compile(
+    r'^\s*([+-]?)([0-9]*)(?:\.([0-9]*))?(?:[eE]([+-]?[0-9]+))?\s*$')
+# powers of ten as the C literals 1e0..1e308
+_POW10 = [float('1e{}'.format(i)) for i in range(309)]
+
+
+def as_column(values):
+    """A 1-D numpy column; numpy strings become object arrays of ``str``."""
+    values = np.asarray(values)
+    if values.ndim != 1:
+        raise ValueError('a column must be 1-D, got shape {}'.format(
+            values.shape))
+    if values.dtype.kind in ('U', 'S'):
+        values = np.array([str(v) for v in values], dtype=object)
+    return values
+
+
+class Series:
+    """One labelled column: ``values``, ``index`` and ``name``."""
+
+    def __init__(self, values, index=None, name=None):
+        self.values = as_column(values)
+        self.index = (np.arange(len(self.values)) if index is None
+                      else as_column(index))
+        if len(self.index) != len(self.values):
+            raise ValueError('index and values differ in length')
+        self.name = name
+
+
+class Table:
+    """Ordered columns of one length, with an index.
+
+    Args:
+        columns: a dict or a sequence of (name, values) pairs, in order
+        index: row labels (default ``0..n-1``)
+        index_name: the index's name, or None
+    """
+
+    def __init__(self, columns=(), index=None, index_name=None):
+        items = columns.items() if isinstance(columns, dict) else columns
+        self.data = {}
+        for name, values in items:
+            self.data[name] = as_column(values)
+        lengths = {len(v) for v in self.data.values()}
+        if len(lengths) > 1:
+            raise ValueError('columns differ in length: {}'.format(
+                {k: len(v) for k, v in self.data.items()}))
+        n = lengths.pop() if lengths else (0 if index is None else len(index))
+        self.index = np.arange(n) if index is None else as_column(index)
+        if len(self.index) != n:
+            raise ValueError('index and columns differ in length')
+        self.index_name = index_name
+
+    @classmethod
+    def from_records(cls, records):
+        """A table from a non-empty list of dicts: columns in the order their
+        names first appear, each typed from its values as pandas types it
+        (bool, int64, float64, else object)."""
+        names = []
+        for record in records:
+            names += [k for k in record if k not in names]
+        return cls([(name, [r[name] for r in records]) for name in names])
+
+    @property
+    def columns(self):
+        return list(self.data)
+
+    def __len__(self):
+        return len(self.index)
+
+    def __contains__(self, name):
+        return name in self.data
+
+    def __getitem__(self, name):
+        return self.data[name]
+
+    def __setitem__(self, name, values):
+        """Set a column; a new one goes last, as pandas appends it."""
+        values = as_column(values)
+        if len(values) != len(self):
+            raise ValueError('column {!r} has {} rows, the table {}'.format(
+                name, len(values), len(self)))
+        self.data[name] = values
+
+    def items(self):
+        return self.data.items()
+
+    def select(self, names):
+        """The named columns, in the given order (KeyError if one is
+        missing)."""
+        return Table([(name, self.data[name]) for name in names],
+                     index=self.index, index_name=self.index_name)
+
+    def take(self, rows):
+        """The rows at ``rows`` (a boolean mask or integer positions), with
+        their index labels."""
+        rows = np.asarray(rows)
+        return Table([(name, values[rows]) for name, values in self.items()],
+                     index=self.index[rows], index_name=self.index_name)
+
+
+def inner_join(left, right, on):
+    """Rows of ``left`` and ``right`` whose ``on`` values are equal, in
+    ``left``'s row order (each left row once per matching right row, in
+    ``right``'s order), as ``left.merge(right, on=on)``: ``left``'s
+    columns, then ``right``'s without ``on``; the index runs 0..n-1."""
+    shared = (set(left.columns) & set(right.columns)) - {on}
+    if shared:
+        raise ValueError('columns in both tables: {}'.format(sorted(shared)))
+    right_rows = {}
+    for j, key in enumerate(right[on]):
+        right_rows.setdefault(key, []).append(j)
+    left_idx, right_idx = [], []
+    for i, key in enumerate(left[on]):
+        for j in right_rows.get(key, ()):
+            left_idx.append(i)
+            right_idx.append(j)
+    left_idx = np.asarray(left_idx, dtype=np.int64)
+    right_idx = np.asarray(right_idx, dtype=np.int64)
+    return Table([(name, values[left_idx]) for name, values in left.items()]
+                 + [(name, values[right_idx]) for name, values in right.items()
+                    if name != on])
+
+
+def parse_float(field):
+    """A decimal number as pandas' default C parser reads it
+    (``precise_xstrtod``): the first 17 significant digits accumulated in
+    a double, then one multiplication or division by a power of ten. It
+    can differ from Python's correctly rounded ``float`` in the last bit,
+    so a table read here holds pandas' values bit for bit."""
+    inf = _INF_FIELDS.get(field.strip().lower())
+    if inf is not None:
+        return inf
+    match = _FLOAT_FIELD.match(field)
+    if match is None or not (match.group(2) or match.group(3)):
+        raise ValueError('not a number: {!r}'.format(field))
+    sign, whole, fraction, exp = match.groups()
+    fraction = fraction or ''
+    number, exponent, num_digits = 0.0, 0, 0
+    for digit in whole:
+        if num_digits < 17:
+            number = number * 10. + (ord(digit) - 48)
+            num_digits += 1
+        else:
+            exponent += 1
+    for digit in fraction[:max(17 - num_digits, 0)]:
+        number = number * 10. + (ord(digit) - 48)
+        num_digits += 1
+        exponent -= 1
+    if sign == '-':
+        number = -number
+    if exp:
+        exponent += int(exp)
+    if exponent > 308:
+        return np.copysign(np.inf, number)
+    if exponent > 0:
+        return number * _POW10[exponent]
+    if exponent < -616:
+        return 0.0
+    if exponent < -308:
+        return number / _POW10[-308 - exponent] / _POW10[308]
+    return number / _POW10[-exponent]
+
+
+def _parse_column(fields):
+    """Type one column's fields as ``pd.read_csv`` does: all integers →
+    int64; else all numbers or missing → float64 (missing as NaN); all
+    true/false words → bool; else ``str``."""
+    if not fields:
+        return np.array([], dtype=object)
+    if all(f in _TRUE_FIELDS or f in _FALSE_FIELDS for f in fields):
+        return np.array([f in _TRUE_FIELDS for f in fields], dtype=bool)
+    if all(_INT_FIELD.match(f) for f in fields):
+        try:
+            return np.array([int(f) for f in fields], dtype=np.int64)
+        except OverflowError:
+            pass
+    try:
+        return np.array([np.nan if f in _NA_FIELDS else parse_float(f)
+                         for f in fields], dtype=np.float64)
+    except ValueError:
+        return np.array(fields, dtype=object)
+
+
+def read_tsv(path, str_columns=()):
+    """A tab-separated file with a header line as a :class:`Table`.
+
+    Column types follow ``pd.read_csv``'s inference (see
+    ``_parse_column``); a column named in ``str_columns`` stays ``str``,
+    as a ``str`` converter keeps it. Blank lines are skipped.
+    """
+    with open(path, newline='') as f:
+        rows = [row for row in csv.reader(f, delimiter='\t') if row]
+    if not rows:
+        raise ValueError('{} has no header line'.format(path))
+    header, rows = rows[0], rows[1:]
+    for i, row in enumerate(rows):
+        if len(row) != len(header):
+            raise ValueError('{}: line {} has {} fields, the header {}'.format(
+                path, i + 2, len(row), len(header)))
+    columns = []
+    for k, name in enumerate(header):
+        fields = [row[k] for row in rows]
+        columns.append((name, np.array(fields, dtype=object)
+                        if name in str_columns else _parse_column(fields)))
+    return Table(columns)

@@ -444,7 +444,8 @@ class BreakpointModel:
         seg_class = self.spec.seg_class_np
         cn1 = class_cn[seg_class, seq]            # (N1, M, 2)
 
-        brk_states = self.spec.brk_states.cpu().numpy()
+        # int32, the dtype of the reference's decoded breakpoint copy number
+        brk_states = self.spec.brk_states.cpu().numpy().astype(np.int32)
         num_brk_states = brk_states.shape[0]
         tp = self.transition_log_prob
 

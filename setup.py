@@ -39,6 +39,7 @@ setup(
     entry_points={
         'console_scripts': [
             'remixt-tpu = remixt_tpu.ui.main:main',
+            'remixt-tpu-torch = remixt_tpu_torch.ui.main:main',
         ],
     },
     install_requires=[

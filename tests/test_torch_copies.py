@@ -1,13 +1,26 @@
 """The port keeps its own copies of the JAX package's numpy-only modules;
-they must give the same results: state enumeration, segmentation remap and
-the count-level simulation."""
+they must give the same results: state enumeration, segmentation remap,
+the count-level simulation, the interval keys, the weighted resample, the
+measurability of reads, and the workflow scheduler (the scheduler cases of
+``tests/test_cli.py``, run against both schedulers)."""
+
+import os
+import time
 
 import numpy as np
 import pytest
 
+from remixt_tpu import likelihood as jlikelihood
+from remixt_tpu import scheduler as jscheduler
+from remixt_tpu import segalg as jsegalg
+from remixt_tpu import utils as jutils
 from remixt_tpu.models import remap as jremap
 from remixt_tpu.models import states as jstates
 from remixt_tpu.simulations import simple as jsim
+from remixt_tpu_torch import likelihood as tlikelihood
+from remixt_tpu_torch import scheduler as tscheduler
+from remixt_tpu_torch import segalg as tsegalg
+from remixt_tpu_torch import utils as tutils
 from remixt_tpu_torch.models import remap as tremap
 from remixt_tpu_torch.models import states as tstates
 from remixt_tpu_torch.simulations import simple as tsim
@@ -47,3 +60,123 @@ def test_simulation_and_remap(seed):
     for a, b in zip(t.expand_data(ref['x'], ref['l']),
                     j.expand_data(ref['x'], ref['l'])):
         np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize('seed', [0, 1])
+def test_numpy_copies(seed):
+    rng = np.random.RandomState(seed)
+    codes = rng.randint(0, 30, size=200)
+    positions = rng.randint(0, 2 ** 40, size=200)
+    np.testing.assert_array_equal(tsegalg.composite_keys(codes, positions),
+                                  jsegalg.composite_keys(codes, positions))
+    data, weights = rng.rand(50), rng.rand(50)
+    np.testing.assert_array_equal(
+        tutils.weighted_resample(data, weights, seed=seed),
+        jutils.weighted_resample(data, weights, seed=seed))
+    x = rng.randint(0, 1000, size=(40, 3))
+    phi = tlikelihood.estimate_phi(x)
+    np.testing.assert_array_equal(phi, jlikelihood.estimate_phi(x))
+    np.testing.assert_array_equal(
+        tlikelihood.proportion_measureable_matrix(phi),
+        jlikelihood.proportion_measureable_matrix(phi))
+
+
+# -- scheduler: tests/test_cli.py's cases, against both copies ----------------
+
+def _write_file(path, content):
+    with open(path, 'w') as f:
+        f.write(content)
+
+
+def _concat_files(out, *ins):
+    with open(out, 'w') as f:
+        for i in ins:
+            f.write(open(i).read())
+
+
+def _produce():
+    return {'x': 41}
+
+
+def _consume(out, value):
+    _write_file(out, str(value + 1))
+
+
+def _dag_and_resume(Workflow, tmp_path):
+    a, b, c = (str(tmp_path / n) for n in ('a.txt', 'b.txt', 'c.txt'))
+
+    def build():
+        wf = Workflow('test')
+        wf.transform('write_a', _write_file, args=(a, 'A'), outputs=[a])
+        wf.transform('write_b', _write_file, args=(b, 'B'), outputs=[b])
+        wf.transform('concat', _concat_files, args=(c, a, b),
+                     inputs=[a, b], outputs=[c])
+        return wf
+
+    workdir = str(tmp_path / 'work')
+    build().run(workdir)
+    assert open(c).read() == 'AB'
+    # resume: completed tasks are skipped, c untouched unless inputs change
+    _write_file(c, 'TAMPERED')
+    build().run(workdir)
+    assert open(c).read() == 'TAMPERED'
+    # touching an input forces the downstream rerun
+    time.sleep(0.01)
+    _write_file(a, 'A2')
+    build().run(workdir)
+    assert open(c).read() == 'A2B'
+
+
+def _ret_values(Workflow, tmp_path):
+    out = str(tmp_path / 'out.txt')
+    wf = Workflow('retvals')
+    ret = wf.transform('produce', _produce)
+    wf.transform('consume', _consume, args=(out, ret['x']), outputs=[out])
+    wf.run(str(tmp_path / 'work'))
+    assert open(out).read() == '42'
+
+
+def _missing_ret_reruns(Workflow, tmp_path):
+    """A surviving sentinel whose return pickle is gone does not resume as
+    completed."""
+    out = str(tmp_path / 'out.txt')
+
+    def build():
+        wf = Workflow('retloss')
+        ret = wf.transform('produce', _produce)
+        wf.transform('consume', _consume, args=(out, ret['x']), outputs=[out])
+        return wf
+
+    workdir = str(tmp_path / 'work')
+    build().run(workdir)
+    assert open(out).read() == '42'
+    os.remove(os.path.join(workdir, '.ret_produce.pickle'))
+    os.remove(out)
+    build().run(workdir)
+    assert open(out).read() == '42'
+
+
+def _parallel(Workflow, tmp_path):
+    outs = [str(tmp_path / 'f{}.txt'.format(i)) for i in range(4)]
+    wf = Workflow('par')
+    for i, out in enumerate(outs):
+        wf.transform('write_{}'.format(i), _write_file, args=(out, str(i)),
+                     outputs=[out])
+    merged = str(tmp_path / 'merged.txt')
+    wf.transform('merge', _concat_files, args=tuple([merged] + outs),
+                 inputs=outs, outputs=[merged])
+    wf.run(str(tmp_path / 'work'), max_jobs=3)
+    assert open(merged).read() == '0123'
+
+
+SCHEDULER_CASES = {'dag_and_resume': _dag_and_resume,
+                   'ret_values': _ret_values,
+                   'missing_ret_reruns': _missing_ret_reruns,
+                   'parallel': _parallel}
+
+
+@pytest.mark.parametrize('scheduler', [jscheduler, tscheduler],
+                         ids=['jax', 'torch'])
+@pytest.mark.parametrize('case', list(SCHEDULER_CASES))
+def test_scheduler(case, scheduler, tmp_path):
+    SCHEDULER_CASES[case](scheduler.Workflow, tmp_path)

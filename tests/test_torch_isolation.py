@@ -1,7 +1,9 @@
 """The port stands alone: importing every module of ``remixt_tpu_torch``
-loads neither JAX nor the JAX package, no source of the port or of
-``chip_smoke.py`` imports them, and the entry points refuse to fall back to
-the CPU when no CUDA device was asked for and none exists."""
+loads neither JAX nor the JAX package, nor pandas, scikit-learn, h5py or
+PyYAML (which the GPU machine may lack); no source of the port or of
+``chip_smoke.py`` imports JAX, the JAX package, pandas or scikit-learn; and
+the entry points refuse to fall back to the CPU when no CUDA device was
+asked for and none exists."""
 
 import os
 import pkgutil
@@ -44,6 +46,19 @@ def test_importing_every_module_loads_no_jax():
     subprocess.run([sys.executable, '-c', code], check=True, cwd=REPO)
 
 
+def test_importing_every_module_loads_no_optional_package():
+    """pandas and scikit-learn are never used; h5py and PyYAML are imported
+    only inside the functions that need them."""
+    code = (
+        'import importlib, sys\n'
+        'for name in {!r}:\n'
+        '    importlib.import_module(name)\n'
+        'bad = sorted(m for m in sys.modules if m.split(".")[0] in\n'
+        '             ("pandas", "sklearn", "h5py", "yaml"))\n'
+        'assert not bad, bad\n').format(port_modules())
+    subprocess.run([sys.executable, '-c', code], check=True, cwd=REPO)
+
+
 def source_files():
     files = [os.path.join(REPO, 'chip_smoke.py')]
     for root, _, names in os.walk(PACKAGE):
@@ -59,6 +74,30 @@ def test_source_imports_no_jax(path):
         text = f.read()
     assert not re.search(r'^\s*(?:import|from)\s+jax', text, re.M), path
     assert not re.search(r'\bremixt_tpu\.', text), path
+
+
+@pytest.mark.parametrize('path', source_files(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_source_imports_no_pandas_or_sklearn(path):
+    with open(path) as f:
+        text = f.read()
+    assert not re.search(r'^\s*(?:import|from)\s+(?:pandas|sklearn)\b',
+                         text, re.M), path
+    assert not re.search(r'\bimport\s+(?:pandas|sklearn)\b', text), path
+
+
+def test_cli_fit_without_device_raises_without_cuda(monkeypatch, tmp_path):
+    """The fit CLI without a device raises before it writes anything."""
+    import remixt_tpu_torch.ui.fit
+
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    work_dir = tmp_path / 'work'
+    results_file = tmp_path / 'results.h5'
+    with pytest.raises(RuntimeError, match='CUDA'):
+        remixt_tpu_torch.ui.fit.fit(
+            str(tmp_path / 'counts.tsv'), str(tmp_path / 'breakpoints.tsv'),
+            str(results_file), str(work_dir), config=None, min_length=None)
+    assert not work_dir.exists() and not results_file.exists()
 
 
 def test_fit_many_without_device_raises_without_cuda(monkeypatch):
