@@ -86,6 +86,21 @@ Phases, in order; any failure exits non-zero:
    is missing, the results store cannot be written: the workflow's fit task
    runs alone, ``init`` and ``collate`` run through their table builders in
    memory, every check but the file's is made, and a line says so.
+9. Simulate → fit → evaluate at full width and depth: the first simulation
+   of ``benchmark/accuracy_sim_defs.yaml`` (``accuracy_0_0``: N=5000, M=3,
+   22 autosomes) through the port's ``create_simulations`` and
+   ``simulate_experiment`` on the host, which must be the JAX package's
+   simulation (``ACCURACY_SIM``: N, detected breakpoints, h, digests of x
+   and l); the ``fit`` workflow over init's grid (84 restarts) at the
+   defaults, 5 EM × 5 VI, as in phase 8, with every chain forward-backward
+   through ``fb_grouped`` (275 launches) and finite ELBOs; the evaluation
+   against the truth (``evaluate_tables``, the outlier evaluation
+   included), every metric printed beside ``benchmark/ACCURACY_BENCH.json``'s
+   row and each of ``ACCURACY_BARS`` held to it; then the grid's restart
+   nearest the true h fitted through ``pipeline.fit`` with
+   ``optimal_initialization`` (25 ``fb_chains`` launches, a finite ELBO)
+   and evaluated. Prints the wall time of each step and the peak device
+   memory.
 
 The line before the last holds the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -93,6 +108,7 @@ The line before the last holds the kernel table as JSON; the last line is
 
 import contextlib
 import csv
+import hashlib
 import importlib.util
 import json
 import os
@@ -122,6 +138,22 @@ CHAIN_CLUSTERS = (3, 4, 5, 6, 7, 8)
 # the scaled fits decode the copy number of the log-space fits on at
 # least this share of the segments
 SAME_CN_SHARE = 0.99
+# phase 9: the first simulation of benchmark/accuracy_sim_defs.yaml and
+# what the JAX package makes of it on the CPU: its simulate_experiment
+# gives N segments, the detected breakpoints, h and the sha256 of x and l
+# (float64, C order; first 16 hex digits), and its init the grid's
+# restarts
+ACCURACY_SIM = dict(name='accuracy_0_0', N=5000, breakpoints=276,
+                    h=(0.04, 0.04, 0.02), x='73f71b1c8ae16383',
+                    l='e363e17a94417e0d', restarts=84)
+# phase 9's bars: each metric within this of the simulation's row of
+# benchmark/ACCURACY_BENCH.json (the JAX package's fit at the defaults)
+ACCURACY_BARS = {
+    'proportion_cn_correct': 0.03, 'proportion_dom_cn_correct': 0.03,
+    'brk_cn_correct_proportion': 0.08,
+    'mix_pred_0': 0.02, 'mix_pred_1': 0.02, 'mix_pred_2': 0.02,
+    'correct_outlier_total_proportion': 0.01,
+    'correct_outlier_allele_proportion': 0.01}
 
 
 START = time.time()
@@ -1093,28 +1125,43 @@ def write_tables(data, directory, segment_length=500000):
 HAVE_H5PY = importlib.util.find_spec('h5py') is not None
 
 
-def fit_workflow(label, data, config, device, root):
-    """One sample through the ``fit`` workflow: TSVs, ``create_experiment``,
-    ``init``, the fit task, ``collate``, then the workflow run again on its
-    work directory. Without h5py the fit task runs alone in the workflow and
-    ``init`` and ``collate`` through their table builders.
+def tsv_experiment(data, root):
+    """A fresh ``root`` with ``data`` written as count and breakpoint TSVs
+    and ``create_experiment`` run on them. Returns the experiment file and
+    the seconds ``create_experiment`` took."""
+    from remixt_tpu_torch.analysis import experiment as experiment_mod
+    fresh_directory(root)
+    count_file, breakpoint_file = write_tables(data, root)
+    experiment_file = os.path.join(root, 'experiment.pickle')
+    t0 = time.time()
+    experiment_mod.create_experiment(count_file, breakpoint_file,
+                                     experiment_file)
+    return experiment_file, time.time() - t0
+
+
+def fresh_directory(root):
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+
+
+def fit_workflow(label, experiment_file, config, device, root):
+    """One sample's pickled experiment through the ``fit`` workflow in
+    ``root``: ``init``, the fit task, ``collate``, then the workflow run
+    again on its work directory. Without h5py the fit task runs alone in
+    the workflow and ``init`` and ``collate`` through their table builders.
 
     Returns dict(init_params, tables, fits {init_id: pickled results},
-    times {step: seconds}, waves [seconds of each wave of the batched fit],
-    launches, rerun seconds, rerun launches).
+    times {step: seconds, 'whole' from init to the tables}, waves [seconds
+    of each wave of the batched fit], launches, rerun seconds, rerun
+    launches).
     """
     import torch
     from remixt_tpu_torch import workflow
-    from remixt_tpu_torch.analysis import experiment as experiment_mod
     from remixt_tpu_torch.analysis import pipeline
     from remixt_tpu_torch.io import hdf5
     from remixt_tpu_torch.models import engine as eng
     from remixt_tpu_torch.scheduler import Workflow
 
-    shutil.rmtree(root, ignore_errors=True)
-    os.makedirs(root)
-    count_file, breakpoint_file = write_tables(data, root)
-    experiment_file = os.path.join(root, 'experiment.pickle')
     results_file = os.path.join(root, 'results.h5')
     tempdir = os.path.join(root, 'fit')
     stages, captured, marks = {}, {}, []
@@ -1164,9 +1211,6 @@ def fit_workflow(label, data, config, device, root):
         if device is None:
             torch.cuda.reset_peak_memory_stats()
         t0 = time.time()
-        experiment_mod.create_experiment(count_file, breakpoint_file,
-                                         experiment_file)
-        stages['experiment'] = [time.time() - t0]
         if not HAVE_H5PY:
             with open(experiment_file, 'rb') as f:
                 experiment = pickle.load(f)
@@ -1208,6 +1252,16 @@ def fit_workflow(label, data, config, device, root):
                 waves=np.diff(marks).tolist(),
                 launches=launches, rerun=rerun,
                 rerun_launches=rerun_launches)
+
+
+def check_rerun(label, run):
+    """The workflow run again skipped every task in under 10 s."""
+    if run['rerun'] >= 10.0 or any(run['rerun_launches'].values()):
+        raise AssertionError('{}: the workflow run again took {:.3f} s '
+                             'and launched {}'.format(
+                                 label, run['rerun'], run['rerun_launches']))
+    log('{}: the workflow run again skipped every task in {:.3f} s'
+        .format(label, run['rerun']))
 
 
 def check_results_tables(label, run, config, N):
@@ -1278,7 +1332,8 @@ def phase_workflow(data):
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'build',
                         'chip_smoke', 'workflow')
     config = dict(num_em_iter=NUM_EM_ITER, num_update_iter=NUM_UPDATE_ITER)
-    run = fit_workflow('phase 8', data, config, None, root)
+    experiment_file, experiment_s = tsv_experiment(data, root)
+    run = fit_workflow('phase 8', experiment_file, config, None, root)
     restarts = len(run['init_params'])
     waves = -(-restarts // WAVE)
     expected = waves * NUM_EM_ITER * NUM_UPDATE_ITER
@@ -1295,20 +1350,16 @@ def phase_workflow(data):
     log('phase 8: wall s: experiment {:.3f}, init {:.3f}, fit {:.3f} (waves '
         '{:.3f}, decode and results {:.3f}), collate {:.3f}, whole {:.3f}; '
         'per wave {}'.format(
-            times['experiment'], times['init'], times['fit'], sum(run['waves']),
+            experiment_s, times['init'], times['fit'], sum(run['waves']),
             times['fit'] - sum(run['waves']), times['collate'],
-            times['whole'], json.dumps([round(w, 3) for w in run['waves']])))
+            experiment_s + times['whole'],
+            json.dumps([round(w, 3) for w in run['waves']])))
     log('phase 8: max_memory_allocated {:.3f} GB; chosen solution {}; '
         'ELBOs {:.6g} to {:.6g}'.format(
             torch.cuda.max_memory_allocated() / 1e9, best,
             float(np.min(run['tables']['stats']['elbo'])),
             float(np.max(run['tables']['stats']['elbo']))))
-    if run['rerun'] >= 10.0 or any(run['rerun_launches'].values()):
-        raise AssertionError('phase 8: the workflow run again took {:.3f} s '
-                             'and launched {}'.format(
-                                 run['rerun'], run['rerun_launches']))
-    log('phase 8: the workflow run again skipped every task in {:.3f} s'
-        .format(run['rerun']))
+    check_rerun('phase 8', run)
 
     # the default grid's common max depth at max copy number 4 leaves 65 %
     # of this problem unmodellable, which init refuses (as the JAX
@@ -1318,13 +1369,14 @@ def phase_workflow(data):
     small_config = dict(config, max_copy_number=4,
                         h_normal=float(small['h'][0]),
                         h_tumour=float(small['h'][1:].sum()))
-    runs, chosen = {}, {}
+    runs, chosen, whole = {}, {}, {}
     for name, device, dtype in (('card f32', None, 'float32'),
                                 ('CPU f64', 'cpu', 'float64')):
+        experiment_file, experiment_s = tsv_experiment(small, root + '_small')
         runs[name] = fit_workflow(
-            'phase 8 small ' + name, small, dict(small_config,
-                                                 engine_dtype=dtype),
-            device, root + '_small')
+            'phase 8 small ' + name, experiment_file,
+            dict(small_config, engine_dtype=dtype), device, root + '_small')
+        whole[name] = experiment_s + runs[name]['times']['whole']
         chosen[name] = check_results_tables('phase 8 small ' + name,
                                             runs[name], small_config, 60)
     card, cpu = runs['card f32'], runs['CPU f64']
@@ -1342,13 +1394,183 @@ def phase_workflow(data):
         'chosen solution card {} / CPU {}; share of segments whose chosen '
         'cn is equal {:.4f}; card workflow whole {:.3f} s, CPU {:.3f} s'
         .format(len(card['init_params']), chosen['card f32'],
-                chosen['CPU f64'], share, card['times']['whole'],
-                cpu['times']['whole']))
+                chosen['CPU f64'], share, whole['card f32'],
+                whole['CPU f64']))
     if share < SAME_CN_SHARE:
         raise AssertionError('phase 8 small: the card\'s chosen copy number '
                              'differs from the CPU\'s on more than {:.0%} of '
                              'the segments'.format(1 - SAME_CN_SHARE))
     return expected + small_waves * NUM_EM_ITER * NUM_UPDATE_ITER
+
+
+def bench_row(sim_id):
+    """Every metric of ``sim_id``'s rows in the accuracy benchmark's
+    checked-in results (the JAX package's fit at the default config)."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        'benchmark', 'ACCURACY_BENCH.json')
+    with open(path) as f:
+        bench = json.load(f)
+    row = {}
+    for section in ('cn_evaluation', 'brk_cn_evaluation', 'mix_results',
+                    'outlier_evaluation'):
+        for entry in bench[section]:
+            if entry['sim_id'] == sim_id:
+                row.update((k, v) for k, v in entry.items() if k != 'sim_id')
+    return row
+
+
+def evaluation_metrics(evaluation):
+    """{metric: value} over the evaluation's series."""
+    metrics = {}
+    for name in ('cn_evaluation', 'brk_cn_evaluation', 'mix_results',
+                 'outlier_evaluation'):
+        metrics.update(evaluation[name].to_dict())
+    return metrics
+
+
+def sha256_prefix(values):
+    data = np.ascontiguousarray(values, dtype=np.float64).tobytes()
+    return hashlib.sha256(data).hexdigest()[:16]
+
+
+def check_simulation(experiment):
+    """The simulation equals the JAX package's for the same definition."""
+    found = dict(N=experiment.N, breakpoints=len(experiment.breakpoints),
+                 h=[float(v) for v in experiment.h],
+                 x=sha256_prefix(experiment.x), l=sha256_prefix(experiment.l))
+    want = dict(N=ACCURACY_SIM['N'], breakpoints=ACCURACY_SIM['breakpoints'],
+                h=list(ACCURACY_SIM['h']), x=ACCURACY_SIM['x'],
+                l=ACCURACY_SIM['l'])
+    # h is frac * h_total, a rounding away from the decimals
+    same_h = np.allclose(found['h'], want['h'], rtol=1e-12, atol=0.0)
+    if not same_h or dict(found, h=None) != dict(want, h=None):
+        raise AssertionError('phase 9: the simulation is not the JAX '
+                             'package\'s: {} against {}'.format(found, want))
+    return found
+
+
+def phase_accuracy():
+    """The simulate → fit → evaluate path at full width and depth: the
+    accuracy benchmark's first simulation, the fit workflow over init's
+    grid at the default depth, the evaluation against the truth held to the
+    benchmark's row, and one fit seeded from the truth. Returns the
+    fb_grouped and fb_chains launches."""
+    import networkx
+    import torch
+    from remixt_tpu_torch import config as config_mod
+    from remixt_tpu_torch.analysis import pipeline
+    from remixt_tpu_torch.simulations import pipeline as sim_pipeline
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(here, 'build', 'chip_smoke', 'accuracy')
+    fresh_directory(root)
+    sim_defs = sim_pipeline.create_simulations(
+        os.path.join(here, 'benchmark', 'accuracy_sim_defs.yaml'), {}, None)
+    params = sim_defs[ACCURACY_SIM['name']]
+    experiment_file = os.path.join(root, 'experiment.pickle')
+    times = {}
+    t0 = time.time()
+    sim_pipeline.simulate_experiment(experiment_file, None, params)
+    times['simulate'] = time.time() - t0
+    t0 = time.time()
+    with open(experiment_file, 'rb') as f:
+        experiment = pickle.load(f)
+    times['experiment'] = time.time() - t0
+    found = check_simulation(experiment)
+    log('phase 9: {} simulated on the host, the JAX package\'s simulation: '
+        '{}; {} chains; networkx {}'.format(
+            ACCURACY_SIM['name'], json.dumps(found),
+            len(list(experiment.chains)), networkx.__version__))
+
+    config = {}
+    num_em = config_mod.get_param(config, 'num_em_iter')
+    num_vi = config_mod.get_param(config, 'num_update_iter')
+    run = fit_workflow('phase 9', experiment_file, config, None, root)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    restarts = len(run['init_params'])
+    if restarts != ACCURACY_SIM['restarts']:
+        raise AssertionError('phase 9: init\'s grid has {} restarts, the '
+                             'JAX package\'s {}'.format(
+                                 restarts, ACCURACY_SIM['restarts']))
+    waves = -(-restarts // WAVE)
+    expected = waves * num_em * num_vi
+    expect_launches('phase 9', run['launches'], 'fb_grouped', expected)
+    best = check_results_tables('phase 9', run, config, experiment.N)
+    check_rerun('phase 9', run)
+    t0 = time.time()
+    evaluation = sim_pipeline.evaluate_tables(experiment, run['tables'])
+    times['evaluate'] = time.time() - t0
+
+    stats = run['tables']['stats']
+    log('phase 9: fit workflow at the defaults, {} EM x {} VI: grid of {} '
+        'restarts in {} waves of {}, max_depth {}; fb_grouped launches {}; '
+        'chosen solution {} with h {}; ELBOs {:.6g} to {:.6g}'.format(
+            num_em, num_vi, restarts, waves, WAVE, json.dumps(sorted(
+                {p['max_depth'] for p in run['init_params'].values()})),
+            expected, best, np.array2string(run['fits'][best]['h'],
+                                            precision=6),
+            float(np.min(stats['elbo'])), float(np.max(stats['elbo']))))
+    fit_s, waves_s = run['times']['fit'], sum(run['waves'])
+    log('phase 9: wall s: simulate {:.3f}, experiment {:.3f}, init {:.3f}, '
+        'fit {:.3f} (waves {:.3f}, decode and results {:.3f}), collate '
+        '{:.3f}, evaluate {:.3f}; init to collate {:.3f}; per wave {}'.format(
+            times['simulate'], times['experiment'], run['times']['init'],
+            fit_s, waves_s, fit_s - waves_s, run['times']['collate'],
+            times['evaluate'], run['times']['whole'],
+            json.dumps([round(w, 3) for w in run['waves']])))
+    log('phase 9: max_memory_allocated {:.3f} GB'.format(peak_gb))
+
+    metrics, reference = evaluation_metrics(evaluation), bench_row(
+        ACCURACY_SIM['name'])
+    misses = []
+    for name, value in metrics.items():
+        bar = ACCURACY_BARS.get(name)
+        line = '{:<36s} {:12.6f}  benchmark {:12.6f}'.format(
+            name, value, reference[name])
+        if bar is not None:
+            ok = abs(value - reference[name]) <= bar
+            line += '  bar ±{} {}'.format(bar, 'ok' if ok else 'MISS')
+            if not ok:
+                misses.append(name)
+        log('phase 9: ' + line)
+    if misses:
+        raise AssertionError('phase 9: outside the benchmark\'s bars: '
+                             '{}'.format(misses))
+
+    # the restart whose h is nearest the truth (Euclidean), fitted once more
+    # with its breakpoint posteriors seeded from the true breakpoint copy
+    # number
+    def distance(init_id):
+        return float(np.linalg.norm(pipeline._restart_h_init(
+            run['init_params'][init_id]) - experiment.h))
+    nearest = min(run['init_params'], key=distance)
+    reset_chain_launches()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    fit = pipeline.fit(experiment, run['init_params'][nearest],
+                       dict(config, optimal_initialization=True))
+    torch.cuda.synchronize()
+    optimal_s = time.time() - t0
+    expect_launches('phase 9 optimal initialization', chain_launches(),
+                    'fb_chains', num_em * num_vi)
+    if not np.isfinite(fit['stats']['elbo']):
+        raise AssertionError('phase 9: optimal initialization: non-finite '
+                             'ELBO')
+    tables = {}
+    pipeline.store_fit_results(tables, experiment, fit, 'optimal')
+    optimal = evaluation_metrics(sim_pipeline.evaluate_tables(
+        experiment, tables, 'optimal'))
+    log('phase 9: optimal initialization from restart {} (mode {}, h {}, '
+        '{:.6f} from the truth): {} EM x {} VI through pipeline.fit in {:.3f} '
+        's, fb_chains launches {}, ELBO {:.6g}, h {}'.format(
+            nearest, run['init_params'][nearest]['mode_idx'],
+            np.array2string(pipeline._restart_h_init(
+                run['init_params'][nearest]), precision=6), distance(nearest),
+            num_em, num_vi, optimal_s, num_em * num_vi, fit['stats']['elbo'],
+            np.array2string(fit['h'], precision=6)))
+    log('phase 9: optimal initialization evaluation ' + json.dumps(
+        {k: round(v, 6) for k, v in optimal.items()}))
+    return expected, num_em * num_vi
 
 
 def main():
@@ -1380,6 +1602,10 @@ def main():
     grouped_scaled['launches'] = scaled_launches['fb_grouped_scaled']
     chains_scaled['launches'] = scaled_launches['fb_chains_scaled']
     grouped['launches'] += phase_workflow(data)
+    del data, batched_results, sequential_results
+    accuracy_grouped, accuracy_chains = phase_accuracy()
+    grouped['launches'] += accuracy_grouped
+    chains['launches'] += accuracy_chains
 
     print(smi)
     table = {'kernels': [

@@ -280,8 +280,8 @@ def _truth_breakpoint_init(experiment, h_init):
             or getattr(experiment, 'h', None) is None):
         raise ValueError(
             'optimal_initialization needs an experiment from the genome '
-            'simulation (with genome_mixture and h), which the port does '
-            'not build yet')
+            'simulation (simulations.genome.Experiment, with genome_mixture '
+            'and h)')
     collection = experiment.genome_mixture.genome_collection
     truth = collection.collapsed_breakpoint_copy_number()
     for bp in experiment.genome_mixture.detected_breakpoints.values():

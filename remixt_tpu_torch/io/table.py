@@ -15,7 +15,7 @@ import re
 import numpy as np
 
 # pandas' default missing-value markers (``pd.read_csv``'s na_values)
-_NA_FIELDS = frozenset([
+NA_FIELDS = frozenset([
     '', '#N/A', '#N/A N/A', '#NA', '-1.#IND', '-1.#QNAN', '-NaN', '-nan',
     '1.#IND', '1.#QNAN', '<NA>', 'N/A', 'NA', 'NULL', 'NaN', 'None', 'n/a',
     'nan', 'null'])
@@ -52,6 +52,16 @@ class Series:
             raise ValueError('index and values differ in length')
         self.name = name
 
+    @classmethod
+    def from_dict(cls, mapping, name=None):
+        """The values of ``mapping`` labelled by its keys, in its order
+        (``pd.Series(dict)``)."""
+        return cls(_typed_column(list(mapping.values())),
+                   index=_typed_column(list(mapping)), name=name)
+
+    def to_dict(self):
+        return dict(zip(self.index.tolist(), self.values.tolist()))
+
 
 class Table:
     """Ordered columns of one length, with an index.
@@ -79,13 +89,16 @@ class Table:
 
     @classmethod
     def from_records(cls, records):
-        """A table from a non-empty list of dicts: columns in the order their
-        names first appear, each typed from its values as pandas types it
-        (bool, int64, float64, else object)."""
+        """A table from a list of dicts (``pd.DataFrame(records)``): columns
+        in the order their names first appear, each typed from its values
+        as pandas types it (bool, int64, float64, else object); a name
+        missing from a record is NaN there."""
         names = []
         for record in records:
             names += [k for k in record if k not in names]
-        return cls([(name, [r[name] for r in records]) for name in names])
+        return cls([(name, _typed_column([r.get(name, np.nan)
+                                          for r in records]))
+                    for name in names])
 
     @property
     def columns(self):
@@ -123,6 +136,18 @@ class Table:
         rows = np.asarray(rows)
         return Table([(name, values[rows]) for name, values in self.items()],
                      index=self.index[rows], index_name=self.index_name)
+
+
+def _typed_column(values):
+    """A column of Python values: numpy's type for scalars (as
+    ``as_column``), an object array when a value is a list, tuple or
+    dict, which pandas keeps whole."""
+    if not any(isinstance(v, (list, tuple, dict)) for v in values):
+        return as_column(np.asarray(values))
+    column = np.empty(len(values), dtype=object)
+    for i, value in enumerate(values):
+        column[i] = value
+    return column
 
 
 def inner_join(left, right, on):
@@ -202,7 +227,7 @@ def _parse_column(fields):
         except OverflowError:
             pass
     try:
-        return np.array([np.nan if f in _NA_FIELDS else parse_float(f)
+        return np.array([np.nan if f in NA_FIELDS else parse_float(f)
                          for f in fields], dtype=np.float64)
     except ValueError:
         return np.array(fields, dtype=object)
@@ -230,3 +255,66 @@ def read_tsv(path, str_columns=()):
         columns.append((name, np.array(fields, dtype=object)
                         if name in str_columns else _parse_column(fields)))
     return Table(columns)
+
+
+def left_join(left, right, on, fill_value):
+    """Every row of ``left`` with the rows of ``right`` whose ``on`` value
+    equals its own, as ``left.merge(right, on=on, how='left')
+    .fillna(fill_value)``: a left row without a match appears once, with
+    ``fill_value`` in ``right``'s columns, which then turn float64 (from
+    integers) or object (from booleans), as pandas' NaN makes them."""
+    shared = (set(left.columns) & set(right.columns)) - {on}
+    if shared:
+        raise ValueError('columns in both tables: {}'.format(sorted(shared)))
+    right_rows = {}
+    for j, key in enumerate(right[on]):
+        right_rows.setdefault(key, []).append(j)
+    left_idx, right_idx = [], []
+    for i, key in enumerate(left[on]):
+        for j in right_rows.get(key, (-1,)):
+            left_idx.append(i)
+            right_idx.append(j)
+    left_idx = np.asarray(left_idx, dtype=np.int64)
+    right_idx = np.asarray(right_idx, dtype=np.int64)
+    missing = right_idx < 0
+    columns = [(name, values[left_idx]) for name, values in left.items()]
+    for name, values in right.items():
+        if name == on:
+            continue
+        if len(values) == 0:
+            column = np.full(len(left_idx), fill_value, dtype=(
+                object if values.dtype == object else np.float64))
+        else:
+            column = values[np.maximum(right_idx, 0)]
+            if missing.any():
+                if column.dtype.kind in 'iu':
+                    column = column.astype(np.float64)
+                elif column.dtype.kind == 'b':
+                    column = column.astype(object)
+                column[missing] = fill_value
+        columns.append((name, column))
+    return Table(columns)
+
+
+def _tsv_field(value):
+    """One value as ``DataFrame.to_csv`` writes it: floats by ``repr``,
+    NaN and None empty."""
+    if value is None:
+        return ''
+    if isinstance(value, (float, np.floating)):
+        return '' if np.isnan(value) else repr(float(value))
+    if isinstance(value, (bool, np.bool_)):
+        return str(bool(value))
+    if isinstance(value, (int, np.integer)):
+        return str(int(value))
+    return str(value)
+
+
+def write_tsv(table, path):
+    """``table`` as a tab-separated file with a header line and no index,
+    as ``table.to_csv(path, sep='\\t', index=False)`` writes it."""
+    with open(path, 'w', newline='') as f:
+        out = csv.writer(f, delimiter='\t', lineterminator='\n')
+        out.writerow(table.columns)
+        for row in zip(*(values.tolist() for _, values in table.items())):
+            out.writerow([_tsv_field(v) for v in row])

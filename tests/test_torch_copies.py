@@ -1,13 +1,16 @@
 """The port keeps its own copies of the JAX package's numpy-only modules;
 they must give the same results: state enumeration, segmentation remap,
 the count-level simulation, the interval keys, the weighted resample, the
-measurability of reads, and the workflow scheduler (the scheduler cases of
-``tests/test_cli.py``, run against both schedulers)."""
+measurability of reads and the expected read counts, the reverse
+complement, the common refinement of two segmentations, and the workflow
+scheduler (the scheduler cases of ``tests/test_cli.py``, run against both
+schedulers)."""
 
 import os
 import time
 
 import numpy as np
+import pandas as pd
 import pytest
 
 from remixt_tpu import likelihood as jlikelihood
@@ -21,6 +24,7 @@ from remixt_tpu_torch import likelihood as tlikelihood
 from remixt_tpu_torch import scheduler as tscheduler
 from remixt_tpu_torch import segalg as tsegalg
 from remixt_tpu_torch import utils as tutils
+from remixt_tpu_torch.io.table import Table
 from remixt_tpu_torch.models import remap as tremap
 from remixt_tpu_torch.models import states as tstates
 from remixt_tpu_torch.simulations import simple as tsim
@@ -79,6 +83,58 @@ def test_numpy_copies(seed):
     np.testing.assert_array_equal(
         tlikelihood.proportion_measureable_matrix(phi),
         jlikelihood.proportion_measureable_matrix(phi))
+
+
+def _segments(rng, chromosomes, num_segments, index_offset):
+    """Random non-overlapping segments over ``chromosomes`` with gaps, as a
+    pandas frame and a port Table with the same index labels."""
+    columns = {'chromosome': [], 'start': [], 'end': []}
+    for chromosome in chromosomes:
+        bounds = np.sort(rng.choice(10 ** 6, size=2 * num_segments,
+                                    replace=False))
+        columns['chromosome'] += [chromosome] * num_segments
+        columns['start'] += bounds[0::2].tolist()
+        columns['end'] += bounds[1::2].tolist()
+    index = np.arange(len(columns['start'])) + index_offset
+    frame = pd.DataFrame(columns, index=index)
+    table = Table([(k, np.asarray(v)) for k, v in columns.items()],
+                  index=index)
+    return frame, table
+
+
+@pytest.mark.parametrize('seed', [0, 1])
+def test_simulation_helper_copies(seed):
+    rng = np.random.RandomState(seed)
+    sequence = ''.join(rng.choice(list('ACGTacgtN'), size=300))
+    assert (tutils.reverse_complement(sequence)
+            == jutils.reverse_complement(sequence))
+
+    N = 40
+    l = rng.randint(10 ** 3, 10 ** 6, size=N).astype(float)
+    cn = rng.randint(0, 5, size=(N, 3, 2)).astype(float)
+    h, phi = 0.1 * rng.rand(3), rng.uniform(0.05, 0.2, size=N)
+    np.testing.assert_array_equal(
+        tlikelihood.expected_read_count(l, cn, h, phi),
+        jlikelihood.expected_read_count(l, cn, h, phi))
+    cn[3] = -1.
+    for module in (tlikelihood, jlikelihood):
+        with pytest.raises(ValueError, match='invalid mu'):
+            module.expected_read_count(l, cn, h, phi)
+
+    frame_1, table_1 = _segments(rng, ['1', '2', 'X'], 12, 0)
+    frame_2, table_2 = _segments(rng, ['2', '1', '3'], 9, 100)
+    got = tsegalg.reindex_segments(table_1, table_2)
+    ref = jsegalg.reindex_segments(frame_1, frame_2)
+    assert got.columns == list(ref.columns) and len(got) > 0
+    for name in ref.columns:
+        np.testing.assert_array_equal(got[name], ref[name].values,
+                                      err_msg=name)
+    assert got['idx_2'].min() >= 100
+    empty = Table([(c, np.array([], dtype=np.int64))
+                   for c in ('chromosome', 'start', 'end')])
+    assert len(tsegalg.reindex_segments(empty, table_2)) == 0
+    assert tsegalg.reindex_segments(table_1, empty).columns == list(
+        ref.columns)
 
 
 # -- scheduler: tests/test_cli.py's cases, against both copies ----------------

@@ -1,9 +1,10 @@
 """The port stands alone: importing every module of ``remixt_tpu_torch``
-loads neither JAX nor the JAX package, nor pandas, scikit-learn, h5py or
-PyYAML (which the GPU machine may lack); no source of the port or of
-``chip_smoke.py`` imports JAX, the JAX package, pandas or scikit-learn; and
-the entry points refuse to fall back to the CPU when no CUDA device was
-asked for and none exists."""
+loads neither JAX nor the JAX package, nor pandas, scikit-learn, h5py,
+PyYAML, networkx or matplotlib (which the GPU machine may lack); no source
+of the port or of ``chip_smoke.py`` imports JAX, the JAX package, pandas or
+scikit-learn, nor h5py, PyYAML or networkx outside a function; and the
+entry points refuse to fall back to the CPU when no CUDA device was asked
+for and none exists."""
 
 import os
 import pkgutil
@@ -47,15 +48,18 @@ def test_importing_every_module_loads_no_jax():
 
 
 def test_importing_every_module_loads_no_optional_package():
-    """pandas and scikit-learn are never used; h5py and PyYAML are imported
-    only inside the functions that need them."""
+    """pandas, scikit-learn and matplotlib are never used; h5py, PyYAML and
+    networkx are imported only inside the functions that need them."""
+    modules = port_modules()
+    assert 'remixt_tpu_torch.simulations.balanced' in modules
     code = (
         'import importlib, sys\n'
         'for name in {!r}:\n'
         '    importlib.import_module(name)\n'
         'bad = sorted(m for m in sys.modules if m.split(".")[0] in\n'
-        '             ("pandas", "sklearn", "h5py", "yaml"))\n'
-        'assert not bad, bad\n').format(port_modules())
+        '             ("pandas", "sklearn", "h5py", "yaml", "networkx",\n'
+        '              "matplotlib"))\n'
+        'assert not bad, bad\n').format(modules)
     subprocess.run([sys.executable, '-c', code], check=True, cwd=REPO)
 
 
@@ -84,6 +88,18 @@ def test_source_imports_no_pandas_or_sklearn(path):
     assert not re.search(r'^\s*(?:import|from)\s+(?:pandas|sklearn)\b',
                          text, re.M), path
     assert not re.search(r'\bimport\s+(?:pandas|sklearn)\b', text), path
+
+
+@pytest.mark.parametrize('path', source_files(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_source_imports_optional_packages_inside_functions(path):
+    """h5py, PyYAML and networkx only in an indented import; matplotlib
+    nowhere."""
+    with open(path) as f:
+        text = f.read()
+    assert not re.search(r'^(?:import|from)\s+(?:h5py|yaml|networkx)\b',
+                         text, re.M), path
+    assert not re.search(r'\bimport\s+matplotlib\b', text), path
 
 
 def test_cli_fit_without_device_raises_without_cuda(monkeypatch, tmp_path):
