@@ -42,7 +42,9 @@ Phases, in order; any failure exits non-zero:
    experiment with the 8 restarts, 2 EM iterations × 2 VI sweeps (the one
    cut: the defaults are 5 × 5). Checks finite ELBOs, the decoded copy
    number's shape, and that every chain forward-backward of the run went
-   through the ``fb_grouped`` kernel.
+   through the ``fb_grouped`` kernel. Then fits the wave again under
+   ``torch.use_deterministic_algorithms(True, warn_only=True)``: its h,
+   ELBOs and posteriors must equal the first fit's bit for bit.
 4. float32 on the card vs float64 on the CPU at a small size (N=60, max
    copy number 4, 5 sweeps), restart-batched (R=4) and one restart, each
    with the log-space and with the scaled-linear chain forward-backward:
@@ -102,6 +104,26 @@ Phases, in order; any failure exits non-zero:
    and evaluated. Prints the wall time of each step and the peak device
    memory.
 
+10. The float64 route and the accuracy gate
+   (``remixt_tpu_torch.tools.accuracy_gate``) at phase 2's problem: (a) the
+   float64 engine on the card, which takes the plain chain scan
+   (``ops/fb_scan.py``) and launches no kernel, against the float64 plain
+   kernel versions on the CPU at phase 4's size, R=4 and one restart, 5
+   sweeps, posteriors within ``F64_SCAN_BAR``, and the device time of
+   both float64 scans at phase 3's width, one restart and its wave of 8,
+   with the wave call's peak memory; (b) the gate's ``--oracle``
+   with the float64 card engine as the reference: 5 sweeps of the float32
+   kernel route from the same initialization, every figure per sweep
+   beside the JAX package's (``JAX_F32_VS_F64_SWEEPS``) and the gate's
+   thresholds held on the last sweep; (c) its ``--em``: the float32 and the
+   float64 single-restart fits, 5 EM × 5 VI, the figures beside the JAX
+   package's (``JAX_F32_VS_F64_FIT``), finite ELBOs, the decoded copy
+   number differing on at most ``DECODE_DISAGREEMENT_BAR`` of the segments,
+   no kernel launched by the float64 fit, and its wall time, EM iteration
+   and peak memory; (d) its ``--kernels``: the float32 kernel route
+   against the float32 scan route, 5 sweeps, posteriors within
+   ``KERNELS_VS_SCAN_BAR``.
+
 The line before the last holds the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -146,14 +168,22 @@ SAME_CN_SHARE = 0.99
 ACCURACY_SIM = dict(name='accuracy_0_0', N=5000, breakpoints=276,
                     h=(0.04, 0.04, 0.02), x='73f71b1c8ae16383',
                     l='e363e17a94417e0d', restarts=84)
-# phase 9's bars: each metric within this of the simulation's row of
-# benchmark/ACCURACY_BENCH.json (the JAX package's fit at the defaults)
-ACCURACY_BARS = {
-    'proportion_cn_correct': 0.03, 'proportion_dom_cn_correct': 0.03,
-    'brk_cn_correct_proportion': 0.08,
-    'mix_pred_0': 0.02, 'mix_pred_1': 0.02, 'mix_pred_2': 0.02,
-    'correct_outlier_total_proportion': 0.01,
-    'correct_outlier_allele_proportion': 0.01}
+# phase 10 (b) and (c): the JAX package's float32 figures at this width
+# (ACCURACY.json: float32_engine_vs_f64_oracle, the max over 5 sweeps and
+# the last sweep's argmax disagreement; f32_vs_f64_full_fit)
+JAX_F32_VS_F64_SWEEPS = dict(posterior_max_abs_diff=6.0e-4,
+                             posterior_argmax_disagreement=1.8e-3)
+JAX_F32_VS_F64_FIT = dict(posterior_max_abs_diff=3.2e-3,
+                          p_breakpoint_max_abs_diff=9.1e-6,
+                          h_max_rel_diff=2.2e-8, elbo_rel_diff=3.9e-5,
+                          decode_disagreement_fraction=0.0)
+# phase 10: the float64 scan route on the card against the float64 plain
+# kernel versions on the CPU; the float32 kernel route against the float32
+# scan route (phase 4's bar); the decode of the float32 fit against the
+# float64 fit's
+F64_SCAN_BAR = 1e-9
+KERNELS_VS_SCAN_BAR = 1e-3
+DECODE_DISAGREEMENT_BAR = 1e-2
 
 
 START = time.time()
@@ -754,7 +784,54 @@ def phase_fit(data):
              | np.all(dec == truth[:, :, ::-1], axis=(1, 2)))
     log('phase 3: best restart h {}, exact tumour cn on {:.3f} of segments'
         .format(np.array2string(best['h'], precision=5), exact.mean()))
+    repeat_wave(data, results)
     return expected, results
+
+
+def fit_differences(first, again):
+    """Per restart, the max abs difference of h, ELBO and posteriors of a
+    refit from the first fit."""
+    return {key: max(float(np.abs(np.asarray(pick(first[i]))
+                                  - np.asarray(pick(again[i]))).max())
+                     for i in first)
+            for key, pick in (('h', lambda r: r['h']),
+                              ('elbo', lambda r: r['stats']['elbo']),
+                              ('posteriors', lambda r: r['posteriors']))}
+
+
+def deterministic_fit(fit):
+    """``fit()`` under ``torch.use_deterministic_algorithms(True,
+    warn_only=True)``; returns its result and the ops torch names as
+    nondeterministic in it."""
+    import warnings
+    import torch
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter('always')
+            out = fit()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    ops = sorted({str(w.message).split('. ')[0] for w in caught
+                  if 'deterministic' in str(w.message).lower()})
+    return out, ops
+
+
+def repeat_wave(data, first):
+    """Phase 3's wave fitted again under torch's deterministic algorithms
+    with warnings only: its h, ELBOs and posteriors must equal the first
+    fit's bit for bit."""
+    again, ops = deterministic_fit(
+        lambda: timed_fit(data, WAVE, batched=True)[0])
+    diff = fit_differences(first, again)
+    log('phase 3: the wave fitted again under torch.use_deterministic_'
+        'algorithms(True, warn_only=True): max abs diff from the first fit '
+        '{}; ops torch names as nondeterministic: {}'.format(
+            json.dumps(diff), json.dumps(ops) if ops else 'none'))
+    if any(diff.values()):
+        raise AssertionError('phase 3: the batched refit differs from the '
+                             'first fit: {}'.format(diff))
 
 
 def check_results(results):
@@ -846,27 +923,13 @@ def repeat_fit(data, first):
     difference of h, ELBO and posteriors of each from phase 6's fit, and
     the ops that torch names as nondeterministic. Reports only; a
     difference fails nothing."""
-    import warnings
-    import torch
-
     def diff(again):
-        return {key: float(np.abs(np.asarray(pick(first))
-                                  - np.asarray(pick(again))).max())
-                for key, pick in (('h', lambda r: r['h']),
-                                  ('elbo', lambda r: r['stats']['elbo']),
-                                  ('posteriors', lambda r: r['posteriors']))}
+        return fit_differences({0: first}, again)
 
     log('phase 6: restart 0 fitted again: max abs diff from the first fit '
-        '{}'.format(json.dumps(diff(timed_fit(data, 1, batched=False)[0][0]))))
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter('always')
-            again = timed_fit(data, 1, batched=False)[0][0]
-    finally:
-        torch.use_deterministic_algorithms(False)
-    ops = sorted({str(w.message).split('. ')[0] for w in caught
-                  if 'deterministic' in str(w.message).lower()})
+        '{}'.format(json.dumps(diff(timed_fit(data, 1, batched=False)[0]))))
+    again, ops = deterministic_fit(
+        lambda: timed_fit(data, 1, batched=False)[0])
     log('phase 6: restart 0 fitted again under torch.use_deterministic_'
         'algorithms(True, warn_only=True): max abs diff from the first fit '
         '{}'.format(json.dumps(diff(again))))
@@ -1083,6 +1146,163 @@ def phase_small_f32_vs_f64():
                 raise AssertionError('f32 posteriors ({}, {}) differ from '
                                      'f64 by {}'.format(recursion, label,
                                                         diff))
+
+
+def time_float64_scans():
+    """Both float64 scans at whole-genome width on the card, on the
+    frames and q(brk) of phase 3's wave before its first sweep: one restart
+    and the R=8 wave, each call's device time and the wave's peak memory
+    above what was allocated before it, and each held to the same scan on
+    the CPU (posteriors within ``F64_SCAN_BAR``, log_norm rtol 1e-12)."""
+    import torch
+    from remixt_tpu_torch.models import engine as eng
+    from remixt_tpu_torch.ops import fb_scan
+
+    data = simulate(N_FULL, CN_MAX_FULL, EVENTS_FULL, CHAINS_FULL, seed=0)
+    model = make_model(data, CN_MAX_FULL, 'cuda', torch.float64)
+    h_inits, weights = restart_grid(data['h'], WAVE)
+    spec, params_b, state_b = initial_batch(model, h_inits, weights)
+    ll_tot, ll_alle = eng.emission_tensors(spec, params_b)
+    frame_b = eng._mix_framelogprob(spec, params_b, state_b, ll_tot, ll_alle)
+    del ll_tot, ll_alle
+    layout = (spec.chain_bank_idx, spec.chain_seg_map, spec.chain_last)
+    bank = eng.full_bank(spec, state_b.p_breakpoint[0])
+    one_ms = cuda_ms(lambda: fb_scan.forward_backward_chains(
+        frame_b[0], bank, *layout), 3)
+    be_bank_b = eng.breakend_tmats(spec, state_b.p_breakpoint)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    wave_ms = cuda_ms(lambda: fb_scan.forward_backward_chains_restarts(
+        frame_b, spec.static_bank, be_bank_b, spec.restart_plan,
+        spec.chain_seg_map, spec.chain_last), 3)
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+
+    def cpu(x):
+        return x.cpu() if torch.is_tensor(x) else x
+
+    for label, run, args in (
+            ('one restart', fb_scan.forward_backward_chains,
+             (frame_b[0], bank) + layout),
+            ('R={}'.format(WAVE), fb_scan.forward_backward_chains_restarts,
+             (frame_b, spec.static_bank, be_bank_b, spec.restart_plan,
+              spec.chain_seg_map, spec.chain_last))):
+        card = [x.cpu() for x in run(*args)]
+        host = run(*[cpu(x) for x in args])
+        diff = float((eng.exp_normalize(card[0] + card[1], dim=-1)
+                      - eng.exp_normalize(host[0] + host[1], dim=-1)
+                      ).abs().max())
+        norm = float(((card[2] - host[2]) / host[2]).abs().max())
+        log('phase 10 (a): float64 scan, {}, card vs CPU at N={}: posterior '
+            'max abs diff {:.3e}, log_norm rel diff {:.3e}'.format(
+                label, spec.N, diff, norm))
+        if not (diff <= F64_SCAN_BAR and norm <= 1e-12):
+            raise AssertionError('phase 10 (a): the card\'s float64 scan '
+                                 '({}) differs from the CPU\'s'.format(label))
+    log('phase 10 (a): float64 scans at N={} S={} J={} Q={} L={} (kmax {}): '
+        'one restart {:.3f} ms, R={} {:.3f} ms; the wave call\'s peak above '
+        'its inputs {:.3f} GB (the log-space bank {:.3f} GB)'.format(
+            spec.N, spec.S, spec.J, spec.Q, spec.L,
+            spec.restart_plan['kmax'], one_ms, WAVE, wave_ms, peak_gb,
+            be_bank_b.numel() * 8 / 1e9))
+
+
+def phase_float64():
+    """The float64 route on the card (the plain chain scan,
+    ``ops/fb_scan.py``) and the accuracy gate's three checks at
+    whole-genome width."""
+    import torch
+    from remixt_tpu_torch.models import engine as eng
+    from remixt_tpu_torch.tools import accuracy_gate as gate
+
+    # (a) the scan route on the card against the plain kernel versions on
+    # the CPU, both float64, at phase 4's size
+    data = simulate(60, 4, 8, 2, seed=2)
+    h_inits, weights = restart_grid(data['h'], 4, seed=3)
+    marg = {}
+    for device in ('cuda', 'cpu'):
+        before = chain_launches()
+        model = make_model(data, 4, device, torch.float64)
+        spec, params_b, state_b = initial_batch(model, h_inits, weights)
+        if spec.use_kernels != (device == 'cpu'):
+            raise AssertionError('phase 10: float64 on {} takes the {} '
+                                 'route'.format(device, 'kernel' if
+                                                spec.use_kernels else 'scan'))
+        swept_b = eng.variational_sweeps_restarts(spec, params_b, state_b, 5)
+        swept = eng.variational_sweeps(spec, eng.take(params_b, 0),
+                                       eng.take(state_b, 0), 5)
+        marg[device] = [s.posterior_marginals.cpu().numpy()
+                        for s in (swept_b, swept)]
+        if device == 'cuda' and chain_launches() != before:
+            raise AssertionError('phase 10: the float64 scan route '
+                                 'launched a kernel')
+    for label, card, cpu in zip(('R=4', 'one restart'), marg['cuda'],
+                                marg['cpu']):
+        diff = float(np.abs(card - cpu).max())
+        log('phase 10 (a): float64 scan on the card vs float64 plain kernel '
+            'versions on the CPU, N=60 S={} {}, 5 sweeps: posterior max abs '
+            'diff {:.3e} (bar {:.0e})'.format(cpu.shape[-1], label, diff,
+                                               F64_SCAN_BAR))
+        if not diff <= F64_SCAN_BAR:
+            raise AssertionError('phase 10 (a): {} differs by {}'.format(
+                label, diff))
+
+    time_float64_scans()
+
+    # (b) the gate's --oracle at whole-genome width, the float64 engine on
+    # the card in the oracle's place
+    reset_chain_launches()
+    entry = gate.gate_oracle(N_FULL, num_sweeps=5, dtype='float32',
+                             device='cuda', reference='engine')
+    expect_launches('phase 10 (b)', chain_launches(), 'fb_chains', 5)
+    last = entry['per_sweep'][-1]
+    log('phase 10 (b): f32 kernel route vs f64 scan route on the card (the '
+        'sweeps above), N={} S={} K={}: posterior max abs diff {:.3e} over '
+        '5 sweeps (JAX f32 vs f64 oracle {:.1e}), argmax disagreement '
+        '{:.3e} settled (JAX {:.1e}); thresholds {}'.format(
+            entry['N'], entry['S'], entry['K'],
+            entry['posterior_max_abs_diff'],
+            JAX_F32_VS_F64_SWEEPS['posterior_max_abs_diff'],
+            last['posterior_argmax_disagreement'],
+            JAX_F32_VS_F64_SWEEPS['posterior_argmax_disagreement'],
+            json.dumps(gate.ORACLE_GATE_THRESHOLDS)))
+    failures = gate.check_thresholds(entry)
+    if failures:
+        raise AssertionError('phase 10 (b): ' + '; '.join(failures))
+
+    # (c) the gate's --em: the float32 and float64 5 x 5 fits
+    fit = gate.gate_em(N_FULL, device='cuda')
+    log('phase 10 (c): f32 vs f64 single-restart fit, {} EM x {} VI: '.format(
+        fit['num_em_iter'], fit['num_update_iter']) + ', '.join(
+            '{} {:.3e} (JAX {:.1e})'.format(k, fit[k], v)
+            for k, v in JAX_F32_VS_F64_FIT.items()))
+    log('phase 10 (c): ELBO f32 {:.6f}, f64 {:.6f}; f64 fit wall {:.3f} s, '
+        'EM iteration {:.3f} s, max_memory_allocated {:.3f} GB, kernel '
+        'launches {}; f32 fit wall {:.3f} s, EM iteration {:.3f} s, '
+        'max_memory_allocated {:.3f} GB, kernel launches {}'.format(
+            fit['elbo_f32'], fit['elbo_f64'], fit['f64_fit_seconds'],
+            fit['f64_em_iteration_seconds'], fit['f64_peak_gb'],
+            fit['f64_kernel_launches'], fit['f32_fit_seconds'],
+            fit['f32_em_iteration_seconds'], fit['f32_peak_gb'],
+            fit['f32_kernel_launches']))
+    if fit['f64_kernel_launches']:
+        raise AssertionError('phase 10 (c): the float64 fit launched {} '
+                             'kernels'.format(fit['f64_kernel_launches']))
+    if not np.isfinite([fit['elbo_f32'], fit['elbo_f64']]).all():
+        raise AssertionError('phase 10 (c): non-finite ELBO')
+    if not fit['decode_disagreement_fraction'] <= DECODE_DISAGREEMENT_BAR:
+        raise AssertionError('phase 10 (c): decode disagreement {}'.format(
+            fit['decode_disagreement_fraction']))
+
+    # (d) the gate's --kernels
+    reset_chain_launches()
+    entry = gate.gate_kernels(N_FULL, num_sweeps=5, device='cuda')
+    expect_launches('phase 10 (d)', chain_launches(), 'fb_chains', 5)
+    log('phase 10 (d): f32 kernel route vs f32 scan route on the card, 5 '
+        'sweeps: ' + json.dumps(entry))
+    if not entry['posterior_max_abs_diff'] <= KERNELS_VS_SCAN_BAR:
+        raise AssertionError('phase 10 (d): posteriors differ by {}'.format(
+            entry['posterior_max_abs_diff']))
 
 
 def write_tables(data, directory, segment_length=500000):
@@ -1406,17 +1626,11 @@ def phase_workflow(data):
 def bench_row(sim_id):
     """Every metric of ``sim_id``'s rows in the accuracy benchmark's
     checked-in results (the JAX package's fit at the default config)."""
+    from remixt_tpu_torch.benchmark.export_evaluation import rows_by_sim
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         'benchmark', 'ACCURACY_BENCH.json')
     with open(path) as f:
-        bench = json.load(f)
-    row = {}
-    for section in ('cn_evaluation', 'brk_cn_evaluation', 'mix_results',
-                    'outlier_evaluation'):
-        for entry in bench[section]:
-            if entry['sim_id'] == sim_id:
-                row.update((k, v) for k, v in entry.items() if k != 'sim_id')
-    return row
+        return rows_by_sim(json.load(f))[sim_id]
 
 
 def evaluation_metrics(evaluation):
@@ -1459,6 +1673,7 @@ def phase_accuracy():
     import torch
     from remixt_tpu_torch import config as config_mod
     from remixt_tpu_torch.analysis import pipeline
+    from remixt_tpu_torch.benchmark.export_evaluation import ACCURACY_BARS
     from remixt_tpu_torch.simulations import pipeline as sim_pipeline
 
     here = os.path.dirname(os.path.abspath(__file__))
@@ -1606,6 +1821,7 @@ def main():
     accuracy_grouped, accuracy_chains = phase_accuracy()
     grouped['launches'] += accuracy_grouped
     chains['launches'] += accuracy_chains
+    phase_float64()
 
     print(smi)
     table = {'kernels': [

@@ -9,7 +9,8 @@ fits, and the results tables in the JAX package's HDF5 schema (``stats``,
 ``solutions/solution_{i}/{cn,brk_cn,h,mix}`` and the chosen solution's
 ``cn``, ``mix`` and ``brk_cn``). ``init`` and ``collate`` are a table
 builder (``init_tables``, ``collate_tables``, host-only numpy) followed by
-the writer ``write_store``.
+the writer ``write_store`` (``io/store.py``: an HDF5 file, or a directory
+of TSV tables where the store's name does not end in ``.h5``).
 
 The grid runs through the batched restart fit (``models/fit_batched.py``)
 in padded waves, or one restart at a time through ``BreakpointModel.fit``
@@ -26,7 +27,7 @@ import remixt_tpu_torch.config
 from remixt_tpu_torch.analysis import experiment as experiment_tables
 from remixt_tpu_torch.analysis import readdepth
 from remixt_tpu_torch.device import resolve_device, resolve_dtype
-from remixt_tpu_torch.io.hdf5 import read_store, write_store
+from remixt_tpu_torch.io.store import read_store, write_store
 from remixt_tpu_torch.io.table import Series, Table
 from remixt_tpu_torch.models.fit import (
     BreakpointModel, decode_breakpoints_naive)
@@ -239,7 +240,7 @@ def build_model(experiment, init_params, config, device=None):
     """Construct the BreakpointModel for a restart's configuration."""
     get = lambda name: remixt_tpu_torch.config.get_param(config, name)
     device = resolve_device(device)
-    dtype = resolve_dtype(device, get('engine_dtype'))
+    dtype = resolve_dtype(get('engine_dtype'))
 
     normal_copies = np.ones((experiment.l.shape[0], 2), dtype=int)
     if not get('is_female'):

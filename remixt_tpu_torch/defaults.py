@@ -52,7 +52,8 @@ disable_breakpoints = False
 # For debug purposes, disable update of the h parameter
 do_h_update = True
 
-# Compute dtype of the inference engine (float32 is the only CUDA dtype)
+# Compute dtype of the inference engine; float64 on the card runs the plain
+# chain scan (ops/fb_scan.py) in place of the float32 hand kernels
 engine_dtype = 'float32'
 
 # Fit the restart grid in batched chunks rather than one restart at a time

@@ -4,10 +4,12 @@ Entry points take ``device=None``, which means CUDA. Without a CUDA device
 they raise instead of carrying on on the CPU; callers that want the CPU (the
 tests) ask for it explicitly.
 
-dtype policy: float32 on CUDA (the hand-written kernels are float32); on
-the CPU, float64 or float32, whichever the caller asks for. TF32 is off for
-both matmuls and convolutions: every accuracy figure of the reference was
-taken at full float32 precision.
+dtype policy: float32 or float64, whichever the caller asks for, float32
+by default. The hand-written kernels are float32; a float64 engine on the
+card runs the plain chain scan of ``ops/fb_scan.py`` instead, as the JAX
+package's float64 engine runs its XLA scan. TF32 is off for both matmuls
+and convolutions: every accuracy figure of the reference was taken at full
+float32 precision.
 """
 
 import torch
@@ -31,13 +33,11 @@ def resolve_device(device=None):
     return device
 
 
-def resolve_dtype(device, dtype='float32'):
-    """Engine dtype for ``device``: float32 on CUDA, the caller's choice
-    (a name or a torch dtype) on the CPU."""
+def resolve_dtype(dtype='float32'):
+    """Engine dtype: the caller's choice, a name or a torch dtype, float32
+    or float64."""
     if isinstance(dtype, str):
         dtype = DTYPES[dtype]
     if dtype not in (torch.float32, torch.float64):
         raise ValueError('unsupported engine dtype {}'.format(dtype))
-    if torch.device(device).type == 'cuda' and dtype != torch.float32:
-        raise ValueError('the CUDA engine runs in float32 only')
     return dtype

@@ -318,3 +318,97 @@ def write_tsv(table, path):
         out.writerow(table.columns)
         for row in zip(*(values.tolist() for _, values in table.items())):
             out.writerow([_tsv_field(v) for v in row])
+
+
+TABLES_MANIFEST = 'tables.json'
+
+
+def _typed_fields(fields, dtype):
+    """One column's TSV fields back in the dtype it was written from;
+    floats through Python's correctly rounded ``float``, which reads
+    ``repr`` back bit for bit."""
+    if dtype.startswith('float'):
+        return np.array([np.nan if f == '' else float(f) for f in fields],
+                        dtype=dtype)
+    if dtype == 'bool':
+        return np.array([f == 'True' for f in fields], dtype=bool)
+    if dtype == 'object':
+        return np.array(fields, dtype=object)
+    return np.array([int(f) for f in fields], dtype=dtype)
+
+
+def _format_column(values):
+    """A column's TSV fields as :func:`write_tsv` writes its values."""
+    if values.dtype.kind == 'f':
+        return ['' if v != v else repr(v) for v in values.tolist()]
+    if values.dtype == object:
+        return [_tsv_field(v) for v in values.tolist()]
+    return [str(v) for v in values.tolist()]
+
+
+def write_tables(directory, tables):
+    """``{key: Table or Series}`` as a directory of TSV files, one per key
+    (the key its path, with ``.tsv``), and ``tables.json`` with each key's
+    kind, column dtypes, index and names, from which :func:`read_tables`
+    gives the same tables back. Written beside ``directory`` and renamed
+    into place, replacing what was there."""
+    import json
+    import os
+    import shutil
+
+    staging = directory.rstrip('/') + '.partial'
+    shutil.rmtree(staging, ignore_errors=True)
+    manifest = {}
+    for key, value in tables.items():
+        key = key.strip('/')
+        if isinstance(value, Series):
+            entry = dict(kind='series', name=value.name, index_name=None)
+            columns = [('__index__', value.index),
+                       ('__values__', value.values)]
+        elif isinstance(value, Table):
+            entry = dict(kind='table', name=None, index_name=value.index_name,
+                         columns=value.columns)
+            columns = [('__index__', value.index)] + list(value.items())
+        else:
+            raise TypeError('can only store a Table or a Series, got {}'
+                            .format(type(value)))
+        entry['dtypes'] = [values.dtype.name for _, values in columns]
+        manifest[key] = entry
+        path = os.path.join(staging, key + '.tsv')
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, 'w', newline='') as f:
+            out = csv.writer(f, delimiter='\t', lineterminator='\n')
+            out.writerow([str(k) for k in range(len(columns))])
+            out.writerows(zip(*(_format_column(values)
+                                for _, values in columns)))
+    with open(os.path.join(staging, TABLES_MANIFEST), 'w') as f:
+        json.dump(manifest, f, indent=1)
+    shutil.rmtree(directory, ignore_errors=True)
+    os.replace(staging, directory)
+
+
+def read_tables(directory, keys=None):
+    """The tables :func:`write_tables` wrote, ``{key: Table or Series}``
+    in the order they were written; with ``keys``, only those of them
+    that are there."""
+    import json
+    import os
+
+    with open(os.path.join(directory, TABLES_MANIFEST)) as f:
+        manifest = json.load(f)
+    tables = {}
+    for key, entry in manifest.items():
+        if keys is not None and key not in keys:
+            continue
+        with open(os.path.join(directory, key + '.tsv'), newline='') as f:
+            rows = list(csv.reader(f, delimiter='\t'))[1:]
+        columns = [_typed_fields([row[k] for row in rows], dtype)
+                   for k, dtype in enumerate(entry['dtypes'])]
+        if entry['kind'] == 'series':
+            tables[key] = Series(columns[1], index=columns[0],
+                                 name=entry['name'])
+        else:
+            tables[key] = Table(list(zip(entry['columns'], columns[1:])),
+                                index=columns[0],
+                                index_name=entry['index_name'])
+    return tables

@@ -20,6 +20,11 @@ factored state space and transition banks, written for PyTorch.
   NamedTuples, without the restart axis, and runs as R=1 views of the
   batched functions; only its chain update has a kernel of its own
   (``ops/fb_chains.py``).
+* ``ModelSpec.use_kernels`` picks the chain update's route, as the JAX
+  ``spec.use_pallas`` does: the hand kernels' wrappers (CUDA tensors launch
+  the kernel, CPU tensors take its plain version), or the plain scan of
+  ``ops/fb_scan.py``, the JAX package's XLA scan, under the log-space bank.
+  A float64 engine on the card takes the scan.
 
 Emission special cases (hdel / LOH / masks / zero-count segments) are
 encoded as boolean planes with double-``where`` guards, so
@@ -98,6 +103,11 @@ class ModelSpec:
     Built on the host from the same construction arguments as the JAX
     ``ModelSpec``; arrays live on ``device`` in ``dtype``. ``device=None``
     means CUDA and raises without a CUDA device, as every entry point.
+
+    ``use_kernels``: ``None`` means the hand kernels, except for float64
+    on CUDA, which takes the plain scan; ``False`` the scan on any device;
+    ``True`` the kernels (a float64 CUDA tensor then raises in the
+    wrapper).
     """
 
     def __init__(self,
@@ -112,7 +122,8 @@ class ModelSpec:
                  transition_model=0,
                  dtype=torch.float32,
                  device=None,
-                 xi_chunk=256):
+                 xi_chunk=256,
+                 use_kernels=None):
         cn_states = np.asarray(cn_states, dtype=np.int64)
         brk_states = np.asarray(brk_states, dtype=np.int64)
         N, S, M, _ = cn_states.shape
@@ -131,6 +142,9 @@ class ModelSpec:
         self.dtype = dtype
         self.device = resolve_device(device)
         self.xi_chunk = int(xi_chunk)
+        self.use_kernels = (
+            not (dtype == torch.float64 and self.device.type == 'cuda')
+            if use_kernels is None else bool(use_kernels))
 
         if np.any((breakpoint_idx >= 0) & (is_telomere == 1)):
             raise ValueError('a breakend junction cannot be a telomere')
@@ -277,6 +291,8 @@ class ModelSpec:
         self.static_bank = fl(static_bank)
         self.bank_idx = ix(bank_idx)
         self.xi_static_idx = ix(xi_static_idx)
+        self.restart_plan = fb_scan.build_restart_plan(
+            chain_bank_idx, self.num_static_bank)
         self.chain_seg_map = ix(chain_seg_map)
         self.chain_bank_idx = ix(chain_bank_idx, torch.int32)
         self.chain_last = ix((lengths - 1).astype(np.int64))
@@ -576,7 +592,9 @@ def breakend_tmats(spec, p_breakpoint_b):
     if spec.J == 0:
         return spec.static_bank.new_zeros((R, 0, spec.S, spec.S))
     tot = breakend_tot_expectation(spec, p_breakpoint_b)
-    return -spec.transition_penalty * tot + spec.A[spec.be_c1, spec.be_c2]
+    # in place: the bank is the only full-size buffer
+    return tot.mul_(-spec.transition_penalty).add_(
+        spec.A[spec.be_c1, spec.be_c2])
 
 
 def breakend_tmats_exp(spec, p_breakpoint_b):
@@ -765,11 +783,18 @@ def _with_chain(state, frame, alphas, betas, log_norm):
 def update_p_cn_restarts(spec, params_b, state_b, ll_tot, ll_alle,
                          be_exp_b):
     """Chain update: mix the frames, run the restart-batched chain
-    forward-backward under the sweep's exp-space breakend bank."""
+    forward-backward: the kernel under the sweep's exp-space breakend bank,
+    or the scan under the log-space bank of the same q(brk)."""
     frame_b = _mix_framelogprob(spec, params_b, state_b, ll_tot, ll_alle)
-    alphas, betas, log_norm = fb_grouped.forward_backward_chains_grouped(
-        frame_b, spec.static_bank, be_exp_b, spec.chain_bank_idx,
-        spec.chain_seg_map, spec.chain_last)
+    if spec.use_kernels:
+        alphas, betas, log_norm = fb_grouped.forward_backward_chains_grouped(
+            frame_b, spec.static_bank, be_exp_b, spec.chain_bank_idx,
+            spec.chain_seg_map, spec.chain_last)
+    else:
+        alphas, betas, log_norm = fb_scan.forward_backward_chains_restarts(
+            frame_b, spec.static_bank,
+            breakend_tmats(spec, state_b.p_breakpoint), spec.restart_plan,
+            spec.chain_seg_map, spec.chain_last)
     return _with_chain(state_b, frame_b, alphas, betas, log_norm)
 
 
@@ -844,13 +869,19 @@ def update_p_allele_swap(spec, params, state, ll_alle):
 
 def update_p_cn(spec, params, state, ll_tot, ll_alle, be_exp=None):
     """Chain update of one restart through the single-restart chain
-    kernel. ``be_exp`` (J, S, S) optionally supplies the exp-space breakend
-    bank of ``state.p_breakpoint`` (the sweep builds it once and shares it
-    with the breakpoint update)."""
-    if be_exp is None:
-        be_exp = breakend_tmats_exp(spec, state.p_breakpoint[None])[0]
+    kernel, or the scan under the full log-space bank. ``be_exp`` (J, S,
+    S) optionally supplies the kernel's exp-space breakend bank of
+    ``state.p_breakpoint`` (the sweep builds it once and shares it with the
+    breakpoint update)."""
     frame = _mix_framelogprob(spec, one(params), one(state), ll_tot[None],
                               ll_alle[None])[0]
+    if not spec.use_kernels:
+        alphas, betas, log_norm = fb_scan.forward_backward_chains(
+            frame, full_bank(spec, state.p_breakpoint), spec.chain_bank_idx,
+            spec.chain_seg_map, spec.chain_last)
+        return _with_chain(state, frame, alphas, betas, log_norm)
+    if be_exp is None:
+        be_exp = breakend_tmats_exp(spec, state.p_breakpoint[None])[0]
     alphas, betas, log_norm = fb_chains.forward_backward_chains(
         frame, spec.static_bank, be_exp, spec.chain_bank_idx,
         spec.chain_seg_map, spec.chain_last)

@@ -52,7 +52,8 @@ class BreakpointModel:
     min_proportion_genotyped, max_depth, transition_log_prob,
     disable_breakpoints, normal_copies, do_h_update, random_seed), plus
         device: torch device, ``None`` for CUDA (raises without one)
-        dtype: engine dtype, a name or torch dtype (float32 on CUDA)
+        dtype: engine dtype, a name or torch dtype (default float32)
+        use_kernels: the chain update's route, ``ModelSpec.use_kernels``
     """
 
     def __init__(self, x, l, adjacencies, breakpoints, **kwargs):
@@ -67,8 +68,8 @@ class BreakpointModel:
             self.breakpoint_ids, self.breakpoints = (), ()
 
         self.device = resolve_device(kwargs.get('device'))
-        self.dtype = resolve_dtype(self.device,
-                                   kwargs.get('dtype', torch.float32))
+        self.dtype = resolve_dtype(kwargs.get('dtype', torch.float32))
+        self.use_kernels = kwargs.get('use_kernels')
         self.max_copy_number = kwargs.get('max_copy_number', 6)
         self.max_copy_number_diff = kwargs.get('max_copy_number_diff', 1)
         self.normal_contamination = kwargs.get('normal_contamination', True)
@@ -174,6 +175,7 @@ class BreakpointModel:
             transition_model=self.transition_model,
             dtype=self.dtype,
             device=self.device,
+            use_kernels=self.use_kernels,
         )
 
     def _init_p_breakpoint(self):

@@ -13,10 +13,11 @@ merge tasks.
 Truth and prediction are aligned once on the segment overlap index
 (``segalg.reindex_segments``) or on ``prediction_id``, and every metric is
 a length-weighted reduction over that aligned table. ``evaluate_tables``
-evaluates ``collate_tables``' results in memory, where no HDF5 store can
-be written; ``evaluate_results_task`` reads and writes the JAX package's
-store layout. The read-level tasks (germline alleles, read simulation and
-resampling) and the plots are not ported: a plot file name raises.
+evaluates ``collate_tables``' results in memory; ``evaluate_results_task``
+and ``merge_evaluations`` read and write stores: the JAX package's HDF5
+layout, or without h5py a directory of TSV tables (``io/store.py``). The
+read-level tasks (germline alleles, read simulation and resampling) and
+the plots are not ported: a plot file name raises.
 """
 
 import collections
@@ -28,7 +29,7 @@ import pickle
 import numpy as np
 
 from remixt_tpu_torch import segalg
-from remixt_tpu_torch.io import hdf5
+from remixt_tpu_torch.io import store
 from remixt_tpu_torch.io.table import (
     NA_FIELDS, Series, Table, inner_join, left_join, write_tsv)
 from remixt_tpu_torch.simulations import genome as sim_genome
@@ -538,7 +539,7 @@ def evaluate_tables(experiment, tables, key_prefix=''):
             :class:`~remixt_tpu_torch.simulations.genome.GenomeMixture`
             (then without the outlier evaluation)
         tables: {key: Table or Series} as ``collate_tables`` returns them or
-            ``io.hdf5.read_store`` reads them
+            ``io.store.read_store`` reads them
         key_prefix: where the evaluated solution's ``cn``, ``brk_cn`` and
             ``mix`` lie in ``tables``
 
@@ -570,12 +571,11 @@ def evaluate_results_task(evaluation_filename, results_filename,
                           mixture_filename=None, experiment_filename=None,
                           key_prefix=''):
     """Evaluate one results store against simulation truth and write the
-    evaluation store."""
-    with hdf5.HDFStore(results_filename, 'r') as store:
-        stored = set(store.keys())
-        tables = {name.strip('/'): store[name] for name in (
-            key_prefix + '/cn', key_prefix + '/brk_cn', key_prefix + '/mix')
-            if '/' + name.strip('/') in stored}
+    evaluation store (each an HDF5 file or a directory of TSV tables,
+    ``io/store.py``)."""
+    tables = store.read_store(results_filename, keys=[
+        (key_prefix + '/' + table).strip('/')
+        for table in ('cn', 'brk_cn', 'mix')])
 
     if mixture_filename is not None:
         truth = _load_pickle(mixture_filename)
@@ -585,8 +585,8 @@ def evaluate_results_task(evaluation_filename, results_filename,
         raise ValueError(
             'either mixture_filename or experiment_filename must be set')
 
-    hdf5.write_store(evaluation_filename,
-                     evaluate_tables(truth, tables, key_prefix))
+    store.write_store(evaluation_filename,
+                      evaluate_tables(truth, tables, key_prefix))
 
 
 def _as_str(values):
@@ -598,34 +598,33 @@ def _as_str(values):
 
 def merge_evaluations(merged_filename, sim_defs, evaluation_filenames,
                       key_names):
-    """Merge per-simulation/tool evaluations into one store."""
-    with hdf5.HDFStore(merged_filename, 'w') as merged:
-        if any('sim_id' in params for params in sim_defs.values()):
-            raise ValueError('sim_id is the key of the simulations, not a '
-                             'parameter')
-        simulations = Table.from_records(
-            [dict(sim_id=sim_id, **params)
-             for sim_id, params in sim_defs.items()])
-        merged['/simulations'] = Table(
-            [(name, _as_str(values)) for name, values in simulations.items()])
+    """Merge per-simulation/tool evaluations into one store (an HDF5 file
+    or a directory of TSV tables, ``io/store.py``)."""
+    if any('sim_id' in params for params in sim_defs.values()):
+        raise ValueError('sim_id is the key of the simulations, not a '
+                         'parameter')
+    simulations = Table.from_records(
+        [dict(sim_id=sim_id, **params)
+         for sim_id, params in sim_defs.items()])
+    merged = {'simulations': Table(
+        [(name, _as_str(values)) for name, values in simulations.items()])}
 
-        gathered = collections.defaultdict(list)
-        for key, evaluation_filename in evaluation_filenames.items():
-            key = key if isinstance(key, tuple) else (key,)
-            with hdf5.HDFStore(evaluation_filename, 'r') as store:
-                stored = store.keys()
-                for name in ('/cn_evaluation', '/brk_cn_evaluation',
-                             '/mix_results', '/outlier_evaluation'):
-                    if name not in stored:
-                        continue
-                    row = store[name].to_dict()
-                    for value, col in zip(key, key_names):
-                        row[col] = value
-                    gathered[name].append(row)
-                if '/brk_cn_table' in stored:
-                    merged['/brk_cn_table/' + '/'.join(map(str, key))] = (
-                        store['/brk_cn_table'])
+    gathered = collections.defaultdict(list)
+    for key, evaluation_filename in evaluation_filenames.items():
+        key = key if isinstance(key, tuple) else (key,)
+        evaluation = store.read_store(evaluation_filename)
+        for name in ('cn_evaluation', 'brk_cn_evaluation', 'mix_results',
+                     'outlier_evaluation'):
+            if name not in evaluation:
+                continue
+            row = evaluation[name].to_dict()
+            for value, col in zip(key, key_names):
+                row[col] = value
+            gathered[name].append(row)
+        if 'brk_cn_table' in evaluation:
+            merged['brk_cn_table/' + '/'.join(map(str, key))] = (
+                evaluation['brk_cn_table'])
 
-        for name, rows in gathered.items():
-            merged[name] = Table.from_records(rows)
-
+    for name, rows in gathered.items():
+        merged[name] = Table.from_records(rows)
+    store.write_store(merged_filename, merged)

@@ -10,6 +10,7 @@ import pickle
 
 import remixt_tpu_torch.config
 from remixt_tpu_torch.analysis import pipeline
+from remixt_tpu_torch.io import store
 from remixt_tpu_torch.scheduler import Workflow
 
 
@@ -25,12 +26,15 @@ def create_fit_model_workflow(experiment_filename, results_filename, config,
     """The three tasks of one sample's fit, ``init``, ``fit`` and
     ``collate``, with the sample's config; ``device`` (``None`` means
     CUDA) is where the fit runs. ``ref_data_dir`` is unused, as in the JAX
-    package's count-table workflow."""
+    package's count-table workflow. The init store is an HDF5 file when the
+    results store is one, else a directory of TSV tables
+    (``io/store.py``)."""
     config = remixt_tpu_torch.config.get_sample_config(config, tumour_id)
 
     workflow = Workflow('fit_model')
 
-    init_results_file = _temp(tempdir, 'init_results.h5')
+    init_results_file = _temp(tempdir, 'init_results' + (
+        '.h5' if store.is_hdf5(results_filename) else ''))
     init_ret = workflow.transform(
         'init',
         pipeline.init,
