@@ -124,6 +124,24 @@ Phases, in order; any failure exits non-zero:
    against the float32 scan route, 5 sweeps, posteriors within
    ``KERNELS_VS_SCAN_BAR``.
 
+11. The ``run`` CLI from BAMs to a results store (``ui.main.main(['run',
+   ...])``): the script makes, from seeds, a synthetic reference of
+   chromosomes 20–22 at their GRCh37 lengths (FASTA and index, gap table,
+   SNP panel, mappability store as a directory), the accuracy benchmark's
+   tumour mixture on it with its breakpoint table, and a tumour BAM at 2×
+   and a normal BAM at 1× (``make_run_fixture``); writes stand-ins of the
+   phasing tools first on the PATH (``write_standin_tools``); runs the
+   CLI at the default config from numpy's global state seeded with
+   ``RUN_NUMPY_SEED``, the fit on the card. Holds the count table to the
+   JAX package's digests (``RUN_JAX``: integer columns exactly, float
+   sums at rtol 1e-12), the grid to the JAX package's size, every
+   ``fb_grouped`` launch to one per sweep of every wave, the ELBOs to
+   finite values and the results store to the JAX keys (TSV tables where
+   h5py is absent), and the evaluation against the truth to the JAX
+   package's evaluation of its own fit within ``ACCURACY_BARS``. Prints
+   the wall time of every step, the peak device memory and the host's
+   peak resident set.
+
 The line before the last holds the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -201,13 +219,14 @@ def simulate(N, cn_max, num_events, num_chains, seed):
         num_events=num_events, num_chains=num_chains, seed=seed)
 
 
-def make_model(data, cn_max, device, dtype):
+def make_model(data, cn_max, device, dtype, use_kernels=None):
     from remixt_tpu_torch.models.fit import BreakpointModel
     return BreakpointModel(
         data['x'], data['l'], data['adjacencies'], data['breakpoints'],
         max_copy_number=cn_max, max_depth=1e9, min_segment_length=1.0,
         min_proportion_genotyped=0.0, divergence_weight=1e-7,
-        random_seed=1234, device=device, dtype=dtype)
+        random_seed=1234, device=device, dtype=dtype,
+        use_kernels=use_kernels)
 
 
 def restart_grid(h, num_restarts, seed=1):
@@ -1215,14 +1234,16 @@ def phase_float64():
     from remixt_tpu_torch.models import engine as eng
     from remixt_tpu_torch.tools import accuracy_gate as gate
 
-    # (a) the scan route on the card against the plain kernel versions on
-    # the CPU, both float64, at phase 4's size
+    # (a) the scan route on the card (the float64 default) against the
+    # plain kernel versions on the CPU (asked for: float64 takes the scan
+    # there too by default), both float64, at phase 4's size
     data = simulate(60, 4, 8, 2, seed=2)
     h_inits, weights = restart_grid(data['h'], 4, seed=3)
     marg = {}
     for device in ('cuda', 'cpu'):
         before = chain_launches()
-        model = make_model(data, 4, device, torch.float64)
+        model = make_model(data, 4, device, torch.float64,
+                           use_kernels=True if device == 'cpu' else None)
         spec, params_b, state_b = initial_batch(model, h_inits, weights)
         if spec.use_kernels != (device == 'cpu'):
             raise AssertionError('phase 10: float64 on {} takes the {} '
@@ -1634,11 +1655,13 @@ def bench_row(sim_id):
 
 
 def evaluation_metrics(evaluation):
-    """{metric: value} over the evaluation's series."""
+    """{metric: value} over the evaluation's series (the outlier
+    evaluation where there is one)."""
     metrics = {}
     for name in ('cn_evaluation', 'brk_cn_evaluation', 'mix_results',
                  'outlier_evaluation'):
-        metrics.update(evaluation[name].to_dict())
+        if name in evaluation:
+            metrics.update(evaluation[name].to_dict())
     return metrics
 
 
@@ -1788,6 +1811,811 @@ def phase_accuracy():
     return expected, num_em * num_vi
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the run CLI from BAMs, on a synthetic reference and sample
+# ---------------------------------------------------------------------------
+
+# GRCh37 lengths of the three chromosomes of phase 11 (162.4 Mb in all)
+RUN_CHROMOSOMES = {'20': 63025520, '21': 48129895, '22': 51304566}
+# the 22 GRCh37 autosomes (2.88 Gb), for the whole-genome run
+AUTOSOMES = {
+    '1': 249250621, '2': 243199373, '3': 198022430, '4': 191154276,
+    '5': 180915260, '6': 171115067, '7': 159138663, '8': 146364022,
+    '9': 141213431, '10': 135534747, '11': 135006516, '12': 133851895,
+    '13': 115169878, '14': 107349540, '15': 102531392, '16': 90354753,
+    '17': 81195210, '18': 78077248, '19': 59128983, '20': 63025520,
+    '21': 48129895, '22': 51304566}
+RUN_SEED = 20
+# read depth (bases of read per base of genome) of each sample
+RUN_DEPTH = {'tumour': 2.0, 'normal': 1.0}
+READ_LENGTH = 100
+FRAGMENT_MEAN, FRAGMENT_SD = 300.0, 30.0
+SNP_SPACING = 1000
+# the global numpy seed set before the run, which sample_gc draws from
+RUN_NUMPY_SEED = 2024
+# the stand-in phasing: every SWITCH_EVERY-th het site of a chromosome is
+# one where a drawn phasing switches with probability SWITCH_RATE, so the
+# consensus breaks its blocks there
+SWITCH_EVERY, SWITCH_RATE = 200, 0.3
+
+# what the JAX package makes of phase 11's inputs on the CPU
+# (``python tests/test_torch_run.py --phase11 WORKDIR``): the digest of its
+# count table (``count_table_digest``), its restart grid's size and its
+# evaluation of its own fit (5 EM x 5 VI, float32) against the truth
+RUN_JAX = {'counts': {'rows': 551,
+                      'columns': ['chromosome',
+                                  'start',
+                                  'end',
+                                  'readcount',
+                                  'allele_b_readcount',
+                                  'allele_a_readcount',
+                                  'major_readcount',
+                                  'minor_readcount',
+                                  'major_is_allele_a',
+                                  'bias',
+                                  'length'],
+                      'ints': {'chromosome': '3e316fd309216215',
+                               'start': 'bebdc95662a32ae9',
+                               'end': '67f47485e7eea11c',
+                               'allele_b_readcount': '157ae8137f330e47',
+                               'allele_a_readcount': '3de894e2452074fe',
+                               'major_readcount': '3de894e2452074fe',
+                               'minor_readcount': '157ae8137f330e47',
+                               'major_is_allele_a': 'e4dec168a8a19b23'},
+                      'floats': {'readcount': [1558638.0, 441475513.0],
+                                 'bias': [0.9999999999999734, 272.8879090214796],
+                                 'length': [161175535.0, 43982854731.56945]}},
+           'restarts': 60,
+           'segments': 551,
+           'evaluation': {'proportion_cn_correct': 0.0,
+                          'proportion_dom_cn_correct': 0.0,
+                          'proportion_clonal_correct': 0.5634057861200833,
+                          'proportion_subclonal_correct': 0.5634057861200833,
+                          'pred_ploidy': 4.708467780175199,
+                          'pred_ploidy_1': 4.860935898242869,
+                          'pred_ploidy_2': 4.555999662107528,
+                          'pred_proportion_divergent': 0.41875256378084924,
+                          'true_ploidy': 2.555011239764149,
+                          'true_ploidy_1': 2.5901589841162926,
+                          'true_ploidy_2': 2.519863495412005,
+                          'true_proportion_divergent': 0.29931625168795,
+                          'brk_cn_correct_proportion': 0.3488372093023256,
+                          'brk_cn_present_num_true': 97.0,
+                          'brk_cn_present_num_pos': 148.0,
+                          'brk_cn_present_num_true_pos': 86.0,
+                          'brk_cn_subclonal_num_true': 75.0,
+                          'brk_cn_subclonal_num_pos': 12.0,
+                          'brk_cn_subclonal_num_true_pos': 2.0,
+                          'mix_true_0': 0.4,
+                          'mix_true_1': 0.4,
+                          'mix_true_2': 0.19999999999999996,
+                          'mix_pred_0': 0.5257605910301208,
+                          'mix_pred_1': 0.2821291983127594,
+                          'mix_pred_2': 0.19211022555828094}}
+
+STANDIN_TOOLS = ('bgzip', 'tabix', 'bcftools', 'shapeit4', 'bingraphsample')
+STANDIN_SOURCE = r"""
+# A stand-in for the phasing tools of the run path (bgzip, tabix, bcftools,
+# shapeit4, bingraphsample), for a synthetic sample whose true phase the
+# reference directory's panel file holds. It implements only the calls
+# that remixt_tpu_torch/analysis/haplotype.py makes. Its "BCF" files are
+# plain-text VCF; its phasings are the true phase with switches drawn at
+# every SWITCH_EVERY-th het site with probability SWITCH_RATE.
+import gzip
+import os
+import random
+import sys
+
+SWITCH_EVERY, SWITCH_RATE = @SWITCH_EVERY@, @SWITCH_RATE@
+
+
+def lines(path):
+    opener = gzip.open if path.endswith('.gz') else open
+    with opener(path, 'rt') as f:
+        return f.read().splitlines()
+
+
+def touch(path):
+    open(path, 'w').close()
+
+
+def records(path):
+    return [line.split('\t') for line in lines(path)
+            if line and not line.startswith('#')]
+
+
+def option(args, name):
+    return args[args.index(name) + 1]
+
+
+def write_vcf(path, rows):
+    with open(path, 'w') as f:
+        f.write('##fileformat=VCFv4.2\n#CHROM\tPOS\tID\tREF\tALT\tQUAL\t'
+                'FILTER\tINFO\tFORMAT\tNORMAL\n')
+        f.writelines('\t'.join(row) + '\n' for row in rows)
+
+
+def main(tool, args):
+    if tool == 'bgzip':
+        path = args[-1]
+        with open(path, 'rb') as src, gzip.open(path + '.gz', 'wb') as dst:
+            dst.write(src.read())
+        os.remove(path)
+    elif tool == 'tabix':
+        touch(args[-1] + '.tbi')
+    elif tool == 'bcftools' and args[0] == 'index':
+        touch(args[-1] + '.csi')
+    elif tool == 'bcftools' and args[0] == 'view' and '-H' in args:
+        sys.stdout.write(''.join('\t'.join(row) + '\n'
+                                 for row in records(args[-1])))
+    elif tool == 'bcftools' and args[0] == 'view':
+        source = [a for i, a in enumerate(args[1:], 1)
+                  if not a.startswith('-') and args[i - 1] not in ('-O', '-o')]
+        write_vcf(option(args, '-o'), records(source[0]))
+    elif tool == 'shapeit4':
+        truth = {}
+        for line in lines(option(args, '--reference')):
+            position, allele1 = line.split('\t')[:2]
+            truth[position] = allele1
+        with open(option(args, '--bingraph'), 'w') as f:
+            for i, row in enumerate(records(option(args, '--input'))):
+                weak = int(i % SWITCH_EVERY == SWITCH_EVERY - 1)
+                f.write('\t'.join(row[:5] + [truth.get(row[1], '0'),
+                                             str(weak)]) + '\n')
+    elif tool == 'bingraphsample':
+        rng = random.Random(int(option(args, '--seed')))
+        flip, rows = 0, []
+        for line in lines(option(args, '--input')):
+            chrom, pos, name, ref, alt, allele1, weak = line.split('\t')
+            if weak == '1' and rng.random() < SWITCH_RATE:
+                flip ^= 1
+            a1 = int(allele1) ^ flip
+            rows.append([chrom, pos, name, ref, alt, '.', '.', '.', 'GT',
+                         '{}|{}'.format(a1, 1 - a1)])
+        write_vcf(option(args, '--output'), rows)
+    else:
+        sys.exit('stand-in {}: unsupported call {}'.format(tool, args))
+
+
+main(os.path.basename(sys.argv[0]), sys.argv[1:])
+"""
+
+
+def write_standin_tools(bin_dir):
+    """Executable stand-ins of ``STANDIN_TOOLS`` in ``bin_dir`` (for the
+    front of PATH). Returns ``bin_dir``."""
+    os.makedirs(bin_dir, exist_ok=True)
+    source = '#!{} -S\n'.format(sys.executable) + STANDIN_SOURCE.replace(
+        '@SWITCH_EVERY@', str(SWITCH_EVERY)).replace(
+            '@SWITCH_RATE@', str(SWITCH_RATE))
+    for tool in STANDIN_TOOLS:
+        path = os.path.join(bin_dir, tool)
+        with open(path, 'w') as f:
+            f.write(source)
+        os.chmod(path, 0o755)
+    return bin_dir
+
+
+BGZF_EOF = bytes([
+    0x1f, 0x8b, 0x08, 0x04, 0x00, 0x00, 0x00, 0x00, 0x00, 0xff, 0x06, 0x00,
+    0x42, 0x43, 0x02, 0x00, 0x1b, 0x00, 0x03, 0x00, 0x00, 0x00, 0x00, 0x00,
+    0x00, 0x00, 0x00, 0x00])
+BGZF_PAYLOAD = 65280
+# BAM's 4-bit base codes ('=ACMGRSVTWYHKDBN') of the ASCII bases
+BASE_CODE = np.full(256, 15, dtype=np.uint8)
+for _code, _base in ((1, 'A'), (2, 'C'), (4, 'G'), (8, 'T')):
+    BASE_CODE[ord(_base)] = BASE_CODE[ord(_base.lower())] = _code
+BAM_RECORD = np.dtype([
+    ('block_size', '<i4'), ('refid', '<i4'), ('pos', '<i4'),
+    ('l_read_name', 'u1'), ('mapq', 'u1'), ('bin', '<u2'),
+    ('n_cigar', '<u2'), ('flag', '<u2'), ('l_seq', '<i4'),
+    ('next_refid', '<i4'), ('next_pos', '<i4'), ('tlen', '<i4'),
+    ('name', 'u1', (11,)), ('cigar', '<u4'),
+    ('seq', 'u1', (READ_LENGTH // 2,)), ('qual', 'u1', (READ_LENGTH,))])
+
+
+def bgzf_block(payload):
+    import struct
+    import zlib
+    compressor = zlib.compressobj(1, zlib.DEFLATED, -15)
+    data = compressor.compress(payload) + compressor.flush()
+    header = struct.pack('<BBBBIBBHBBHH', 0x1f, 0x8b, 8, 4, 0, 0, 0xff, 6,
+                         66, 67, 2, len(data) + 25)
+    footer = struct.pack('<II', zlib.crc32(payload) & 0xffffffff,
+                         len(payload))
+    return header + data + footer
+
+
+def reg2bin(beg, end):
+    """The BAM bin of [beg, end) (the specification's reg2bin)."""
+    end = end - 1
+    out = np.zeros(len(beg), dtype=np.int64)
+    for shift, base in ((26, 1), (23, 9), (20, 73), (17, 585), (14, 4681)):
+        same = (beg >> shift) == (end >> shift)
+        out = np.where(same, base + (beg >> shift), out)
+    return out.astype(np.uint16)
+
+
+def bam_records(refid, pos1, length, mapq, names, seq1, seq2):
+    """The two records (first mate forward at ``pos1``, second mate reverse
+    at ``pos1 + length - READ_LENGTH``) of each fragment, sorted by
+    position."""
+    n = len(pos1)
+    pos2 = pos1 + length - READ_LENGTH
+    rec = np.zeros(2 * n, dtype=BAM_RECORD)
+    rec['block_size'] = BAM_RECORD.itemsize - 4
+    rec['refid'] = rec['next_refid'] = refid
+    rec['pos'] = np.concatenate([pos1, pos2])
+    rec['next_pos'] = np.concatenate([pos2, pos1])
+    rec['tlen'] = np.concatenate([length, -length])
+    rec['flag'] = np.repeat([0x1 | 0x2 | 0x20 | 0x40, 0x1 | 0x2 | 0x10 | 0x80],
+                            n)
+    rec['l_read_name'] = 11
+    rec['mapq'] = np.tile(mapq, 2)
+    rec['bin'] = reg2bin(rec['pos'].astype(np.int64),
+                         rec['pos'].astype(np.int64) + READ_LENGTH)
+    rec['n_cigar'] = 1
+    rec['cigar'] = READ_LENGTH << 4
+    rec['l_seq'] = READ_LENGTH
+    rec['name'] = np.tile(names, (2, 1))
+    codes = np.concatenate([seq1, seq2])
+    rec['seq'] = (codes[:, 0::2] << 4) | codes[:, 1::2]
+    rec['qual'] = 30
+    return rec[np.argsort(rec['pos'], kind='stable')]
+
+
+def fragment_names(first, n):
+    """'f' and nine digits, NUL-terminated, for fragments first..first+n."""
+    idx = np.arange(first, first + n, dtype=np.int64)
+    digits = (idx[:, None] // 10 ** np.arange(8, -1, -1)) % 10 + ord('0')
+    names = np.zeros((n, 11), dtype=np.uint8)
+    names[:, 0] = ord('f')
+    names[:, 1:10] = digits
+    return names
+
+
+def write_bam(path, chromosome_lengths, record_batches):
+    """A BGZF BAM of the records (one array per reference, in its order)
+    and its .bai: a linear index of one interval per reference, at the
+    block its records start."""
+    import struct
+    from concurrent.futures import ThreadPoolExecutor
+    header = b'BAM\x01' + struct.pack('<ii', 0, len(chromosome_lengths))
+    for name, length in chromosome_lengths.items():
+        header += struct.pack('<i', len(name) + 1) + name.encode() + b'\0' \
+            + struct.pack('<i', length)
+    offsets = []
+    with open(path, 'wb') as bam, ThreadPoolExecutor(8) as pool:
+        bam.write(bgzf_block(header))
+        for records in record_batches:
+            payload = records.tobytes()
+            offsets.append(bam.tell() if len(payload) else 0)
+            for block in pool.map(bgzf_block, [
+                    payload[i:i + BGZF_PAYLOAD]
+                    for i in range(0, len(payload), BGZF_PAYLOAD)]):
+                bam.write(block)
+        bam.write(BGZF_EOF)
+    with open(path + '.bai', 'wb') as bai:
+        bai.write(b'BAI\x01' + struct.pack('<I', len(offsets)))
+        for offset in offsets:
+            bai.write(struct.pack('<II', 0, 1) + struct.pack('<Q',
+                                                             offset << 16))
+
+
+def write_reference(ref_dir, chromosome_lengths, rng, with_hdf5):
+    """The synthetic reference of the run path: the FASTA (GC content
+    varying by 100 kb block) with its .fai, the gzipped gap table (a
+    telomere gap and two internal gaps a chromosome, N in the FASTA), the
+    SNP panel (a SNP about every SNP_SPACING bases, no header, 1-based),
+    the mappability store as a directory (and as the JAX package's HDF5
+    store with ``with_hdf5``; unmappable stretches of 2-30 kb about every
+    500 kb, and the gaps), and per chromosome the true germline genotype
+    of every SNP. Returns {chromosome: (bases, mappable, snp positions
+    (0-based), alt bases, genotype (n, 2) of alt on each haplotype)}."""
+    import gzip
+    os.makedirs(ref_dir, exist_ok=True)
+    fasta = os.path.join(ref_dir, 'genome.fa')
+    truth = {}
+    gaps = []
+    with open(fasta, 'wb') as fa, open(fasta + '.fai', 'w') as fai, \
+            open(os.path.join(ref_dir, 'thousand_genomes_snps.tsv'),
+                 'w') as snps:
+        for chrom, length in chromosome_lengths.items():
+            blocks = -(-length // 100000)
+            gc = np.repeat(rng.uniform(0.35, 0.6, blocks), 100000)[:length]
+            strong = rng.random_sample(length) < gc
+            pick = rng.randint(0, 2, length).astype(bool)
+            bases = np.where(strong, np.where(pick, ord('G'), ord('C')),
+                             np.where(pick, ord('A'), ord('T'))).astype(
+                                 np.uint8)
+            mappable = np.ones(length, dtype=np.uint8)
+            chrom_gaps = [(0, 10000)]
+            for _ in range(2):
+                start = int(rng.randint(length // 10, length - length // 10))
+                chrom_gaps.append((start, start + int(rng.randint(50000,
+                                                                  500000))))
+            for start, end in chrom_gaps:
+                bases[start:end] = ord('N')
+                mappable[start:end] = 0
+                gaps.append((chrom, start, end))
+            for _ in range(length // 500000):
+                start = int(rng.randint(0, length))
+                mappable[start:start + int(rng.randint(2000, 30000))] = 0
+
+            offset = fa.tell() + len(chrom) + 2
+            fa.write('>{}\n'.format(chrom).encode())
+            lines = -(-length // 60)
+            padded = np.full(lines * 61, ord('\n'), dtype=np.uint8)
+            grid = padded.reshape(lines, 61)
+            body = np.zeros(lines * 60, dtype=np.uint8)
+            body[:length] = bases
+            grid[:, :60] = body.reshape(lines, 60)
+            out = padded[:length + lines]
+            out[-1] = ord('\n')
+            fa.write(out.tobytes())
+            fai.write('{}\t{}\t{}\t60\t61\n'.format(chrom, length, offset))
+
+            positions = np.unique(rng.randint(0, length,
+                                              length // SNP_SPACING))
+            positions = positions[bases[positions] != ord('N')]
+            ref = bases[positions]
+            choices = np.array([ord(b) for b in 'ACGT'], dtype=np.uint8)
+            alt = choices[(np.searchsorted(choices, ref)
+                           + rng.randint(1, 4, len(ref))) % 4]
+            kind = rng.choice(3, len(ref), p=[0.3, 0.5, 0.2])
+            first = rng.randint(0, 2, len(ref))
+            genotype = np.stack([np.where(kind == 1, first, kind // 2),
+                                 np.where(kind == 1, 1 - first, kind // 2)],
+                                axis=1)
+            snps.writelines('{}\t{}\t{}\t{}\n'.format(chrom, p + 1, chr(r),
+                                                      chr(a))
+                            for p, r, a in zip(positions.tolist(),
+                                               ref.tolist(), alt.tolist()))
+            with open(os.path.join(
+                    ref_dir, '1kGP_high_coverage_Illumina.chr{}.filtered.'
+                    'SNV_INDEL_SV_phased_panel.bcf'.format(chrom)),
+                    'w') as panel:
+                panel.writelines('{}\t{}\t{}\n'.format(p + 1, g0, g1)
+                                 for p, (g0, g1) in zip(
+                                     positions.tolist(), genotype.tolist()))
+            truth[chrom] = (bases, mappable, positions, alt, genotype)
+    with gzip.open(os.path.join(ref_dir, 'gap.txt.gz'), 'wt') as f:
+        for i, (chrom, start, end) in enumerate(gaps):
+            f.write('{}\t{}\t{}\t{}\t{}\tN\t{}\tcontig\tno\n'.format(
+                i, chrom, start, end, i + 1, end - start))
+    write_mappability(os.path.join(ref_dir, 'mappability'),
+                      {c: t[1] for c, t in truth.items()}, with_hdf5)
+    return truth
+
+
+def write_mappability(stem, mappable, with_hdf5):
+    """The mappability store of per-chromosome 0/1 arrays: mappable runs at
+    quality 60, unmappable ones at 0; a directory of .npy files at
+    ``stem``, and the JAX package's HDF5 store at ``stem.h5`` with
+    ``with_hdf5``."""
+    tables = {}
+    for chrom, flags in mappable.items():
+        change = np.flatnonzero(np.diff(flags.astype(np.int8))) + 1
+        start = np.concatenate([[0], change]).astype(np.int64)
+        end = np.concatenate([change, [len(flags)]]).astype(np.int64)
+        quality = np.where(flags[start] > 0, 60, 0).astype(np.int64)
+        tables[chrom] = (start, end, quality)
+        path = os.path.join(stem, 'chromosome_' + chrom)
+        os.makedirs(path, exist_ok=True)
+        for name, values in zip(('start', 'end', 'quality'), tables[chrom]):
+            np.save(os.path.join(path, name + '.npy'), values)
+    if with_hdf5:
+        import h5py
+        with h5py.File(stem + '.h5', 'w') as store:
+            for chrom, columns in tables.items():
+                group = store.create_group('chromosome_' + chrom)
+                for name, values in zip(('start', 'end', 'quality'),
+                                        columns):
+                    group.create_dataset(name, data=values)
+
+
+def run_mixture_params(chromosome_lengths):
+    """The accuracy benchmark's simulation parameters
+    (``benchmark/accuracy_sim_defs.yaml``, ``accuracy_0_0``, seed 1234) on
+    the given chromosomes, with N scaled to their share of the
+    autosomes."""
+    from remixt_tpu_torch.simulations import pipeline as sim_pipeline
+    here = os.path.dirname(os.path.abspath(__file__))
+    params = dict(sim_pipeline.create_simulations(
+        os.path.join(here, 'benchmark', 'accuracy_sim_defs.yaml'), {},
+        None)['accuracy_0_0'])
+    share = sum(chromosome_lengths.values()) / float(sum(
+        params['chromosome_lengths'].values()))
+    params.update(chromosome_lengths=dict(chromosome_lengths),
+                  chromosomes=list(chromosome_lengths),
+                  N=int(round(params['N'] * share)))
+    return params
+
+
+def sample_reads(rng, chromosome_lengths, segments, weights, depth):
+    """Fragments of ``depth``: per (segment, allele) in proportion to its
+    length times its weight (the mixture's allele copy number), with a
+    uniform start in the segment and a normal length. Returns {chromosome:
+    (start, length, allele)} sorted by start."""
+    chrom, seg_start, seg_end = segments
+    total = int(round(depth * sum(chromosome_lengths.values())
+                      / (2 * READ_LENGTH)))
+    mass = (seg_end - seg_start)[:, None] * weights
+    counts = rng.multinomial(total, (mass / mass.sum()).ravel()).reshape(
+        mass.shape)
+    out = {}
+    for name, length in chromosome_lengths.items():
+        on = np.flatnonzero(chrom == name)
+        n = counts[on].ravel()
+        seg = np.repeat(np.repeat(on, 2), n)
+        allele = np.repeat(np.tile([0, 1], len(on)), n)
+        start = seg_start[seg] + (rng.random_sample(len(seg))
+                                  * (seg_end - seg_start)[seg]).astype(
+                                      np.int64)
+        frag = np.clip(np.round(rng.normal(FRAGMENT_MEAN, FRAGMENT_SD,
+                                           len(seg))), 2 * READ_LENGTH,
+                       1000 - 1).astype(np.int64)
+        keep = start + frag <= length
+        order = np.argsort(start[keep], kind='stable')
+        out[name] = (start[keep][order], frag[keep][order],
+                     allele[keep][order])
+    return out
+
+
+def read_codes(truth, start, allele):
+    """Each read's base codes: the reference with the alternate base of
+    every SNP that the read's haplotype carries."""
+    from remixt_tpu_torch.segalg import vrange
+    bases, _, positions, alt, genotype = truth
+    codes = BASE_CODE[bases[start[:, None] + np.arange(READ_LENGTH)]]
+    lo = np.searchsorted(positions, start)
+    hi = np.searchsorted(positions, start + READ_LENGTH)
+    read = np.repeat(np.arange(len(start)), hi - lo)
+    snp = vrange(lo, hi - lo)
+    carried = genotype[snp, allele[read]] == 1
+    read, snp = read[carried], snp[carried]
+    codes[read, positions[snp] - start[read]] = BASE_CODE[alt[snp]]
+    return codes
+
+
+def write_sample_bam(path, chromosome_lengths, truth, fragments):
+    """The BAM of a sample's fragments; a pair with a read starting in an
+    unmappable stretch gets mapping quality 0."""
+    batches, first = [], 0
+    for refid, name in enumerate(chromosome_lengths):
+        start, frag, allele = fragments[name]
+        mappable = truth[name][1]
+        pos2 = start + frag - READ_LENGTH
+        mapq = np.where((mappable[start] > 0) & (mappable[pos2] > 0), 60,
+                        0).astype(np.uint8)
+        batches.append(bam_records(
+            refid, start.astype(np.int32), frag.astype(np.int32), mapq,
+            fragment_names(first, len(start)),
+            read_codes(truth[name], start, allele),
+            read_codes(truth[name], pos2, allele)))
+        first += len(start)
+    write_bam(path, chromosome_lengths, batches)
+    return first
+
+
+def count_table_digest(path):
+    """A count table's digest: its rows and columns, the sha256 (first 16
+    hex digits) of each integer or string column, and of each float column
+    its sum and its sum weighted by row number (1..n)."""
+    from remixt_tpu_torch.io.table import read_tsv
+    table = read_tsv(path, str_columns=('chromosome',))
+    weights = np.arange(1, len(table) + 1, dtype=np.float64)
+    digest = dict(rows=len(table), columns=table.columns, ints={}, floats={})
+    for name, values in table.items():
+        if values.dtype.kind == 'f':
+            digest['floats'][name] = [float(values.sum()),
+                                      float(values @ weights)]
+        else:
+            data = ('\n'.join(values).encode() if values.dtype == object
+                    else values.astype(np.int64).tobytes())
+            digest['ints'][name] = hashlib.sha256(data).hexdigest()[:16]
+    return digest
+
+
+def make_run_fixture(root, chromosome_lengths, depths=None, with_hdf5=False,
+                     mixture_params=None):
+    """The run path's inputs, made from seeds: the synthetic reference, the
+    tumour mixture of ``run_mixture_params`` (the port's
+    ``simulate_genome_mixture``), its breakpoint table, and a tumour and a
+    normal BAM at ``depths``; ``mixture_params`` overrides simulation
+    parameters (the tests' small genomes take fewer segments and events).
+    Returns dict(ref_data_dir, bams {sample:
+    path}, breakpoint_file, mixture_file, pairs {sample: fragments},
+    config: the overrides of the defaults, times {step: seconds})."""
+    from remixt_tpu_torch.simulations import pipeline as sim_pipeline
+    depths = dict(RUN_DEPTH if depths is None else depths)
+    rng = np.random.RandomState(RUN_SEED)
+    ref_dir = os.path.join(root, 'ref')
+    times = {}
+    t0 = time.time()
+    truth = write_reference(ref_dir, chromosome_lengths, rng, with_hdf5)
+    times['reference'] = time.time() - t0
+
+    t0 = time.time()
+    mixture_file = os.path.join(root, 'mixture.pickle')
+    params = run_mixture_params(chromosome_lengths)
+    params.update(mixture_params or {})
+    sim_pipeline.simulate_genome_mixture(mixture_file, None, params)
+    breakpoint_file = os.path.join(root, 'breakpoints.tsv')
+    sim_pipeline.write_breakpoints(breakpoint_file, mixture_file)
+    with open(mixture_file, 'rb') as f:
+        mixture = pickle.load(f)
+    times['mixture'] = time.time() - t0
+
+    segments = (np.asarray(mixture.segment_chromosome_id).astype(str),
+                np.asarray(mixture.segment_start, dtype=np.int64),
+                np.asarray(mixture.segment_end, dtype=np.int64))
+    weights = {
+        'tumour': np.einsum('m,nma->na', np.asarray(mixture.frac),
+                            np.asarray(mixture.cn, dtype=float)),
+        'normal': np.ones((len(segments[0]), 2))}
+    bams, pairs = {}, {}
+    t0 = time.time()
+    for sample in ('tumour', 'normal'):
+        fragments = sample_reads(rng, chromosome_lengths, segments,
+                                 weights[sample], depths[sample])
+        bams[sample] = os.path.join(root, sample + '.bam')
+        pairs[sample] = write_sample_bam(bams[sample], chromosome_lengths,
+                                         truth, fragments)
+    times['bams'] = time.time() - t0
+    config = {
+        'chromosomes': list(chromosome_lengths),
+        'genome_fasta_filename': os.path.join(ref_dir, 'genome.fa'),
+        'genome_fai_filename': os.path.join(ref_dir, 'genome.fa.fai'),
+        'gap_table_filename': os.path.join(ref_dir, 'gap.txt.gz'),
+        'mappability_filename': os.path.join(ref_dir, 'mappability'),
+    }
+    return dict(ref_data_dir=ref_dir, bams=bams,
+                breakpoint_file=breakpoint_file, mixture_file=mixture_file,
+                pairs=pairs, config=config, times=times)
+
+
+def host_peak_reset():
+    """Reset the process's peak resident set (``/proc/self/clear_refs``);
+    False where the kernel refuses."""
+    try:
+        with open('/proc/self/clear_refs', 'w') as f:
+            f.write('5')
+        return True
+    except OSError:
+        return False
+
+
+def host_peak_gb():
+    """The process's peak resident set (VmHWM, else the rusage maximum),
+    in GB."""
+    import resource
+    with open('/proc/self/status') as f:
+        for line in f:
+            if line.startswith('VmHWM:'):
+                return int(line.split()[1]) * 1024 / 1e9
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
+
+
+RUN_STEPS = (
+    ('seqdataio', 'create_chromosome_seqdata', 'extract'),
+    ('seqdataio', 'merge_seqdata', 'merge'),
+    ('analysis.haplotype', 'infer_snp_genotype_from_normal', 'genotype'),
+    ('analysis.haplotype', 'infer_haps', 'phase'),
+    ('analysis.segment', 'create_segments', 'segments'),
+    ('analysis.readcount', 'segment_readcount', 'segment counts'),
+    ('analysis.readcount', 'haplotype_allele_readcount', 'allele counts'),
+    ('analysis.readcount', 'phase_segments', 'phase segments'),
+    ('analysis.readcount', 'prepare_readcount_table', 'count table'),
+    ('analysis.stats', 'calculate_fragment_stats', 'fragment stats'),
+    ('analysis.gcbias', 'sample_gc', 'sample_gc'),
+    ('analysis.gcbias', 'gc_lowess', 'gc_lowess'),
+    ('analysis.gcbias', 'gc_map_bias', 'gc_map_bias'),
+    ('analysis.gcbias', 'biased_length', 'biased_length'),
+    ('analysis.experiment', 'create_experiment', 'experiment'),
+    ('analysis.pipeline', 'init', 'init'),
+    ('analysis.pipeline', 'fit_many', 'fit'),
+    ('analysis.pipeline', 'collate', 'collate'),
+)
+
+
+def run_cli(label, root, chromosome_lengths, depths):
+    """Phase 11's inputs made in ``root``, then the ``run`` CLI on them
+    (``remixt_tpu_torch.ui.main.main``), from numpy's global state seeded
+    with ``RUN_NUMPY_SEED``, the stand-in phasing tools first on the PATH.
+    Returns dict(fixture, raw, results, times {step: [seconds]}, waves,
+    launches, whole)."""
+    import importlib
+    import torch
+    from remixt_tpu_torch.io import store
+    from remixt_tpu_torch.models import engine as eng
+    from remixt_tpu_torch.analysis import pipeline
+    from remixt_tpu_torch.ui import main as cli
+
+    fresh_directory(root)
+    fixture = make_run_fixture(os.path.join(root, 'inputs'),
+                               chromosome_lengths, depths=depths)
+    log('{}: inputs made: reference {:.1f} s, mixture {:.1f} s, BAMs {:.1f} '
+        's; {} tumour and {} normal read pairs over {} chromosomes ({:.1f} '
+        'Mb)'.format(label, fixture['times']['reference'],
+                     fixture['times']['mixture'], fixture['times']['bams'],
+                     fixture['pairs']['tumour'], fixture['pairs']['normal'],
+                     len(chromosome_lengths),
+                     sum(chromosome_lengths.values()) / 1e6))
+    bin_dir = write_standin_tools(os.path.join(root, 'bin'))
+    log('{}: the phasing tools ({}) are stand-ins written by this script '
+        '(the true phase with seeded switches), first on the PATH'.format(
+            label, ', '.join(STANDIN_TOOLS)))
+    config_file = os.path.join(root, 'config.yaml')
+    with open(config_file, 'w') as f:
+        json.dump(fixture['config'], f)
+    raw = os.path.join(root, 'raw')
+    results = store.store_name(os.path.join(root, 'results'))
+
+    stages, marks = {}, []
+    timed = stage_timer(stages)
+    elbo0, batched = eng.calculate_elbo_restarts, pipeline.fit_restarts_batched
+
+    def wave_start(*args, **kwargs):
+        torch.cuda.synchronize()
+        marks.append(time.time())
+        return elbo0(*args, **kwargs)
+
+    def waves(*args, **kwargs):
+        out = batched(*args, **kwargs)
+        torch.cuda.synchronize()
+        marks.append(time.time())
+        return out
+
+    eng.calculate_elbo_restarts = wave_start
+    pipeline.fit_restarts_batched = waves
+    originals = [(eng, 'calculate_elbo_restarts', elbo0),
+                 (pipeline, 'fit_restarts_batched', batched)]
+    for module, name, step in RUN_STEPS:
+        module = importlib.import_module('remixt_tpu_torch.' + module)
+        originals.append((module, name, timed(module, name, step)))
+    path = os.environ['PATH']
+    os.environ['PATH'] = bin_dir + os.pathsep + path
+    argv = ['run', fixture['ref_data_dir'], raw, fixture['breakpoint_file'],
+            '--tumour_sample_ids', 'tumour',
+            '--tumour_bam_files', fixture['bams']['tumour'],
+            '--results_files', results,
+            '--normal_sample_id', 'normal',
+            '--normal_bam_file', fixture['bams']['normal'],
+            '--config', config_file]
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        reset_chain_launches()
+        np.random.seed(RUN_NUMPY_SEED)
+        t0 = time.time()
+        cli.main(argv)
+        whole = time.time() - t0
+        launches = chain_launches()
+    finally:
+        os.environ['PATH'] = path
+        for module, name, fn in reversed(originals):
+            setattr(module, name, fn)
+    return dict(fixture=fixture, raw=raw, results=results, times=stages,
+                waves=np.diff(marks).tolist(), launches=launches,
+                whole=whole)
+
+
+def log_run_steps(label, run):
+    times = run['times']
+    log('{}: wall s per step: {}'.format(label, json.dumps(
+        {k: round(sum(v), 3) for k, v in times.items()})))
+    if 'extract' in times:
+        log('{}: extract per chromosome and sample: {}'.format(
+            label, json.dumps([round(t, 3) for t in times['extract']])))
+    waves = run['waves']
+    log('{}: fit: {} waves {:.3f} s ({}), decode and results {:.3f} s'
+        .format(label, len(waves), sum(waves),
+                json.dumps([round(w, 3) for w in waves]),
+                sum(times.get('fit', [0.0])) - sum(waves)))
+
+
+def check_counts_digest(label, count_file, want):
+    """The count table against the JAX package's digest: rows, columns and
+    integer columns exactly, float columns' sums at rtol 1e-12."""
+    got = count_table_digest(count_file)
+    misses = [k for k in ('rows', 'columns', 'ints') if got[k] != want[k]]
+    if set(got['floats']) != set(want['floats']):
+        misses.append('floats')
+    else:
+        for name, values in want['floats'].items():
+            if not np.allclose(got['floats'][name], values, rtol=1e-12,
+                               atol=0.0):
+                misses.append(name)
+    if misses:
+        raise AssertionError('{}: the count table is not the JAX package\'s '
+                             '({}): {} against {}'.format(
+                                 label, misses, got, want))
+    return got
+
+
+def phase_run(smi):
+    """Phase 11: the run CLI from two synthetic BAMs over RUN_CHROMOSOMES
+    to a results store, the fit on the card. Returns the fb_grouped
+    launches."""
+    import torch
+    from remixt_tpu_torch import config as config_mod
+    from remixt_tpu_torch.benchmark.export_evaluation import ACCURACY_BARS
+    from remixt_tpu_torch.io.store import read_store
+    from remixt_tpu_torch.simulations import pipeline as sim_pipeline
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(here, 'build', 'chip_smoke', 'run')
+    t_phase = time.time()
+    reset = host_peak_reset()
+    run = run_cli('phase 11', root, RUN_CHROMOSOMES, RUN_DEPTH)
+    device_gb = torch.cuda.max_memory_allocated() / 1e9
+    log_run_steps('phase 11', run)
+
+    digest = check_counts_digest(
+        'phase 11', os.path.join(run['raw'], 'counts', 'sample_tumour.tsv'),
+        RUN_JAX['counts'])
+    log('phase 11: the count table ({} segments, {} reads) is the JAX '
+        'package\'s for the same inputs and seed: {}'.format(
+            digest['rows'], int(digest['floats']['readcount'][0]),
+            json.dumps(digest)))
+
+    tables = read_store(run['results'])
+    stats = tables['stats']
+    restarts = len(stats['init_id'])
+    if restarts != RUN_JAX['restarts']:
+        raise AssertionError('phase 11: init\'s grid has {} restarts, the '
+                             'JAX package\'s {}'.format(
+                                 restarts, RUN_JAX['restarts']))
+    num_em = config_mod.get_param({}, 'num_em_iter')
+    num_vi = config_mod.get_param({}, 'num_update_iter')
+    expected = -(-restarts // WAVE) * num_em * num_vi
+    expect_launches('phase 11', run['launches'], 'fb_grouped', expected)
+    keys = {'stats', 'read_depth', 'minor_modes', 'cn', 'mix', 'brk_cn'}
+    for init_id in stats['init_id']:
+        keys |= {'solutions/solution_{}/{}'.format(init_id, name)
+                 for name in ('cn', 'brk_cn', 'h', 'mix')}
+    if set(tables) != keys:
+        raise AssertionError('phase 11: results keys {} missing, {} extra'
+                             .format(sorted(keys - set(tables)),
+                                     sorted(set(tables) - keys)))
+    if not np.all(np.isfinite(stats['elbo'])):
+        raise AssertionError('phase 11: non-finite ELBO')
+    log('phase 11: results store {} ({}): {} keys, grid of {} restarts, {} '
+        'EM x {} VI, fb_grouped launches {}; ELBOs {:.6g} to {:.6g}'.format(
+            os.path.relpath(run['results'], here),
+            'HDF5' if run['results'].endswith('.h5') else
+            'TSV tables: h5py is absent', len(tables), restarts, num_em,
+            num_vi, expected, float(np.min(stats['elbo'])),
+            float(np.max(stats['elbo']))))
+
+    with open(run['fixture']['mixture_file'], 'rb') as f:
+        mixture = pickle.load(f)
+    evaluation = evaluation_metrics(sim_pipeline.evaluate_tables(mixture,
+                                                                 tables))
+    misses = []
+    for name, value in evaluation.items():
+        reference = RUN_JAX['evaluation'].get(name)
+        line = '{:<36s} {:12.6f}'.format(name, value)
+        if reference is not None:
+            line += '  JAX {:12.6f}'.format(reference)
+        bar = ACCURACY_BARS.get(name)
+        if bar is not None:
+            ok = abs(value - reference) <= bar
+            line += '  bar ±{} {}'.format(bar, 'ok' if ok else 'MISS')
+            if not ok:
+                misses.append(name)
+        log('phase 11: ' + line)
+    if misses:
+        raise AssertionError('phase 11: outside the bars of the JAX '
+                             'package\'s evaluation: {}'.format(misses))
+    log('phase 11: run CLI {:.1f} s, phase {:.1f} s; max_memory_allocated '
+        '{:.3f} GB; host peak RSS {:.3f} GB ({}); {}'.format(
+            run['whole'], time.time() - t_phase, device_gb, host_peak_gb(),
+            'since the phase began' if reset else 'of the whole script',
+            smi))
+    return expected
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1822,6 +2650,7 @@ def main():
     grouped['launches'] += accuracy_grouped
     chains['launches'] += accuracy_chains
     phase_float64()
+    grouped['launches'] += phase_run(smi)
 
     print(smi)
     table = {'kernels': [

@@ -1,11 +1,85 @@
-"""Default configuration parameters of the fit.
+"""Default configuration parameters of the ``run`` and ``fit`` paths.
 
-A copy of the algorithm parameters of ``remixt_tpu/defaults.py`` (same
-names and values, so user YAML configs carry over). Values are module
-attributes overlaid by a user config dict via :mod:`remixt_tpu_torch.config`.
-Accelerator knobs of the JAX package (Pallas switch, compilation cache,
-device meshes) have no meaning here and are not copied.
+A copy of the reference-data names and the algorithm parameters of
+``remixt_tpu/defaults.py`` (same names and values, so user YAML configs
+carry over). Values are module attributes overlaid by a user config dict
+via :mod:`remixt_tpu_torch.config`. Accelerator knobs of the JAX package
+(Pallas switch, compilation cache, device meshes) and the download URLs
+have no meaning here and are not copied.
 """
+
+###
+# Reference genome and external datasets
+###
+
+ensembl_version = '93'
+ensembl_genome_version = 'GRCh38'
+
+chromosomes = [str(i) for i in range(1, 23)] + ['X']
+
+chr_name_prefix = ''
+
+ucsc_genome_version = 'hg38'
+
+genome_fasta_template = '{ref_data_dir}/Homo_sapiens.{ensembl_genome_version}.{ensembl_version}.dna.chromosomes.fa'
+genome_fai_template = '{ref_data_dir}/Homo_sapiens.{ensembl_genome_version}.{ensembl_version}.dna.chromosomes.fa.fai'
+
+gap_table_template = '{ref_data_dir}/{ucsc_genome_version}_gap.txt.gz'
+
+# Segment length for automatically generated segments
+segment_length = int(5e5)
+
+# Length of simulated reads used to calculate mappability
+mappability_length = 100
+
+# Mapping quality threshold for filtering mappable reads
+map_qual_threshold = 1
+
+# Filter reads marked as duplicate
+filter_duplicates = False
+
+# A name ending in .h5 is the JAX package's HDF5 store; any other name a
+# directory of per-chromosome start, end and quality .npy files
+mappability_template = '{ref_data_dir}/{ucsc_genome_version}.{mappability_length}.bwa.mappability.h5'
+
+# Thousand genomes GRCh38 phased panel
+grch38_1kg_chromosomes = ['chr' + str(i) for i in range(1, 23)] + ['chrX']
+grch38_1kg_bcf_filename_template = '{ref_data_dir}/1kGP_high_coverage_Illumina.{chromosome}.filtered.SNV_INDEL_SV_phased_panel.bcf'
+grch38_1kg_X_bcf_filename_template = '{ref_data_dir}/1kGP_high_coverage_Illumina.chrX.filtered.SNV_INDEL_SV_phased_panel.bcf'
+grch38_1kg_phased_chromosome_x = 'chrX'
+genetic_map_grch38_filename_template = '{ref_data_dir}/{chromosome}.b38.gmap.gz'
+
+snp_positions_template = '{ref_data_dir}/thousand_genomes_snps.tsv'
+
+###
+# Algorithm parameters
+###
+
+# Maximum inferred fragment length of a read pair classified as concordant
+bam_max_fragment_length = 1000
+
+# Maximum soft clipped bases before a read is called discordant
+bam_max_soft_clipped = 8
+
+# Check proper pair flag for identifying concordant pairs
+bam_check_proper_pair = True
+
+# Heterozygous snp calling
+sequencing_base_call_error = 0.01
+het_snp_call_threshold = 0.9
+homozygous_p_value_threshold = 1e-16
+
+# Shapeit haplotype block resolution
+shapeit_num_samples = 100
+shapeit_confidence_threshold = 0.95
+
+# Enable correction
+do_gc_correction = True
+do_mappability_correction = True
+
+# GC bias correction
+sample_gc_num_positions = 10000000
+gc_position_offset = 4
 
 # Male or female for one or two copies of chromosome 'X'
 is_female = True

@@ -310,14 +310,16 @@ def _tsv_field(value):
     return str(value)
 
 
-def write_tsv(table, path):
-    """``table`` as a tab-separated file with a header line and no index,
-    as ``table.to_csv(path, sep='\\t', index=False)`` writes it."""
+def write_tsv(table, path, header=True):
+    """``table`` as a tab-separated file with a header line (unless
+    ``header`` is false) and no index, as ``table.to_csv(path,
+    sep='\\t', index=False)`` writes it."""
     with open(path, 'w', newline='') as f:
         out = csv.writer(f, delimiter='\t', lineterminator='\n')
-        out.writerow(table.columns)
-        for row in zip(*(values.tolist() for _, values in table.items())):
-            out.writerow([_tsv_field(v) for v in row])
+        if header:
+            out.writerow(table.columns)
+        out.writerows(zip(*(_format_column(values)
+                            for _, values in table.items())))
 
 
 TABLES_MANIFEST = 'tables.json'

@@ -24,7 +24,7 @@ factored state space and transition banks, written for PyTorch.
   ``spec.use_pallas`` does: the hand kernels' wrappers (CUDA tensors launch
   the kernel, CPU tensors take its plain version), or the plain scan of
   ``ops/fb_scan.py``, the JAX package's XLA scan, under the log-space bank.
-  A float64 engine on the card takes the scan.
+  A float64 engine takes the scan by default, on every device.
 
 Emission special cases (hdel / LOH / masks / zero-count segments) are
 encoded as boolean planes with double-``where`` guards, so
@@ -97,6 +97,17 @@ def one(tree):
     return type(tree)(*[x[None] for x in tree])
 
 
+def resolve_use_kernels(use_kernels, dtype):
+    """The chain update's route: ``True`` for the kernel wrappers, ``False``
+    for the plain scan of ``ops/fb_scan.py``. ``None`` takes the scan for
+    float64 on every device, as the JAX float64 engine runs its XLA scan:
+    the kernels' plain versions floor each step at ``TINY``, which moves a
+    float64 fit at whole-genome width. Else the caller's choice."""
+    if use_kernels is None:
+        return dtype != torch.float64
+    return bool(use_kernels)
+
+
 class ModelSpec:
     """Static per-problem data: state space, chain structure, data vectors.
 
@@ -104,10 +115,10 @@ class ModelSpec:
     ``ModelSpec``; arrays live on ``device`` in ``dtype``. ``device=None``
     means CUDA and raises without a CUDA device, as every entry point.
 
-    ``use_kernels``: ``None`` means the hand kernels, except for float64
-    on CUDA, which takes the plain scan; ``False`` the scan on any device;
-    ``True`` the kernels (a float64 CUDA tensor then raises in the
-    wrapper).
+    ``use_kernels``: the chain update's route, as ``resolve_use_kernels``
+    resolves it: ``None`` means the hand kernels in float32 and the plain
+    scan in float64, on every device; ``False`` the scan; ``True`` the
+    kernels (a float64 CUDA tensor then raises in the wrapper).
     """
 
     def __init__(self,
@@ -142,9 +153,7 @@ class ModelSpec:
         self.dtype = dtype
         self.device = resolve_device(device)
         self.xi_chunk = int(xi_chunk)
-        self.use_kernels = (
-            not (dtype == torch.float64 and self.device.type == 'cuda')
-            if use_kernels is None else bool(use_kernels))
+        self.use_kernels = resolve_use_kernels(use_kernels, dtype)
 
         if np.any((breakpoint_idx >= 0) & (is_telomere == 1)):
             raise ValueError('a breakend junction cannot be a telomere')

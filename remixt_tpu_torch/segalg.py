@@ -1,8 +1,10 @@
-"""Genomic interval keys and segment refinement (numpy).
+"""Genomic interval keys, containment and segment refinement (numpy).
 
-Counterpart of ``composite_keys`` and ``reindex_segments`` of
+Counterpart of ``composite_keys``, ``reindex_segments``, the containment
+lookups and counts, ``vrange`` and ``interval_position_overlap`` of
 ``remixt_tpu/segalg.py``: the experiment's breakend matcher needs the keys,
-the simulation's evaluation the common refinement of two segmentations.
+the simulation's evaluation the common refinement of two segmentations,
+the ``run`` path's segment and allele counts the containment lookups.
 """
 
 import numpy as np
@@ -88,3 +90,58 @@ def reindex_segments(cn_1, cn_2):
         ('idx_1', cn_1.index[cover_1[both]]),
         ('idx_2', cn_2.index[cover_2[both]]),
     ])
+
+
+def find_contained_positions(X, Y):
+    """Index into non-overlapping start-sorted segments X of the segment
+    containing each position in Y (half-open [start, end)); -1 where
+    uncontained."""
+    Y = np.asarray(Y)
+    candidate = np.searchsorted(X[:, 0], Y, side='right') - 1
+    safe = np.maximum(candidate, 0)
+    hit = (candidate >= 0) & (Y < X[safe, 1])
+    return np.where(hit, candidate, -1)
+
+
+def find_contained_segments(X, Y):
+    """Index into non-overlapping start-sorted X of the segment fully
+    containing each Y segment; -1 where uncontained."""
+    candidate = find_contained_positions(X, Y[:, 0])
+    safe = np.maximum(candidate, 0)
+    hit = (candidate >= 0) & (Y[:, 1] <= X[safe, 1])
+    return np.where(hit, candidate, -1)
+
+
+def contained_counts(X, Y):
+    """Counts of Y segments fully contained in each of the non-overlapping
+    start-sorted X segments."""
+    owner = find_contained_segments(X, Y)
+    return np.bincount(owner[owner >= 0], minlength=X.shape[0]).astype(float)
+
+
+def overlapping_counts(X, Y):
+    """For each sorted position X[i], the number of Y segments with
+    Y[:, 0] < X[i] < Y[:, 1], via a difference array."""
+    enter = np.searchsorted(X, Y[:, 0], side='right')
+    leave = np.searchsorted(X, Y[:, 1], side='left')
+    delta = np.bincount(enter, minlength=X.shape[0] + 1)
+    delta = delta - np.bincount(leave, minlength=X.shape[0] + 1)
+    return np.cumsum(delta[:-1]).astype(float)
+
+
+def vrange(starts, lengths):
+    """Concatenated integer ranges [s, s + length) for each pair."""
+    starts = np.asarray(starts)
+    lengths = np.asarray(lengths)
+    offsets = np.arange(lengths.sum()) - np.repeat(
+        np.concatenate(([0], np.cumsum(lengths)[:-1])), lengths)
+    return np.repeat(starts, lengths) + offsets
+
+
+def interval_position_overlap(intervals, positions):
+    """Pairs (interval_idx, position_idx) for every sorted position falling
+    inside each (possibly overlapping) interval."""
+    first = np.searchsorted(positions, intervals[:, 0])
+    last = np.searchsorted(positions, intervals[:, 1])
+    spans = last - first
+    return np.repeat(np.arange(len(spans)), spans), vrange(first, spans)

@@ -34,7 +34,7 @@ setup(
     packages=find_packages(include=['remixt_tpu', 'remixt_tpu.*',
                                     'remixt_tpu_torch', 'remixt_tpu_torch.*']),
     package_data={'remixt_tpu.io': ['_native/libbamallele.so'],
-                  'remixt_tpu_torch': ['csrc/*.cu']},
+                  'remixt_tpu_torch': ['csrc/*.cu', 'csrc/*.cpp']},
     cmdclass={'build_py': BuildNative},
     entry_points={
         'console_scripts': [

@@ -4,7 +4,13 @@ the count-level simulation, the interval keys, the weighted resample, the
 measurability of reads and the expected read counts, the reverse
 complement, the common refinement of two segmentations, and the workflow
 scheduler (the scheduler cases of ``tests/test_cli.py``, run against both
-schedulers)."""
+schedulers). The functions the port copied verbatim, and the code of the
+BAM allele reader below its header comment, must stay equal to their
+originals, character for character; the rewritten ones are held to the
+JAX outputs elsewhere."""
+
+import importlib
+import inspect
 
 import os
 import time
@@ -236,3 +242,46 @@ SCHEDULER_CASES = {'dag_and_resume': _dag_and_resume,
 @pytest.mark.parametrize('case', list(SCHEDULER_CASES))
 def test_scheduler(case, scheduler, tmp_path):
     SCHEDULER_CASES[case](scheduler.Workflow, tmp_path)
+
+
+# functions of the run path copied verbatim: (module under both packages,
+# name)
+VERBATIM = [('segalg', name) for name in (
+    'find_contained_positions', 'find_contained_segments',
+    'contained_counts', 'overlapping_counts', 'vrange',
+    'interval_position_overlap')] + [
+    ('utils', 'read_sequences'), ('utils', 'sort_chromosome_names'),
+    ('utils', 'merge_files'), ('utils', 'link_file'),
+    ('config', 'get_full_config'), ('config', 'get_filename'),
+    ('config', 'get_chromosomes'),
+    ('analysis.segment', '_merge_intervals'),
+    ('analysis.haplotype', '_haplotype_blocks'),
+    ('analysis.haplotype', '_run')] + [
+    ('analysis.gcbias', name) for name in (
+        'lowess', '_GenomeCoords', 'GCCurve', '_accumulate_matching_counts',
+        '_fragment_start_probabilities', 'calculate_segment_gc_map_bias')]
+
+
+@pytest.mark.parametrize('module,name', VERBATIM,
+                         ids=['.'.join(v) for v in VERBATIM])
+def test_verbatim_copies(module, name):
+    source = [inspect.getsource(getattr(importlib.import_module(
+        package + '.' + module), name))
+        for package in ('remixt_tpu', 'remixt_tpu_torch')]
+    assert source[0] == source[1]
+
+
+def test_bam_allele_reader_source_is_a_copy():
+    """The port's C++ source is the JAX package's from its first
+    ``#include`` on, byte for byte; only the header comment differs."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sources = []
+    for path in (('src',), ('remixt_tpu_torch', 'csrc')):
+        with open(os.path.join(repo, *path, 'bam_allele_reader.cpp'),
+                  'rb') as f:
+            text = f.read()
+        head, code = text.split(b'#include', 1)
+        assert all(line.startswith(b'//') for line in head.splitlines()
+                   if line.strip())
+        sources.append(code)
+    assert sources[0] == sources[1]

@@ -209,12 +209,29 @@ def port_spec(case, **kwargs):
                           **dict(spec_kwargs, **kwargs))
 
 
+@pytest.mark.parametrize('dtype,device,route', [
+    (torch.float32, 'cpu', True), (torch.float32, 'cuda', True),
+    (torch.float64, 'cpu', False), (torch.float64, 'cuda', False)])
+def test_default_route_by_dtype_and_device(dtype, device, route):
+    """``use_kernels=None`` takes the kernel wrappers in float32 and the
+    scan in float64, on the CPU and on the card alike; an explicit choice
+    is kept."""
+    assert teng.resolve_use_kernels(None, dtype) is route
+    assert teng.resolve_use_kernels(True, dtype) is True
+    assert teng.resolve_use_kernels(False, dtype) is False
+    if device == 'cpu':
+        spec_kwargs, _, _, _ = build(0)
+        spec = teng.ModelSpec(dtype=dtype, device=device, **spec_kwargs)
+        assert spec.use_kernels is route
+
+
 @pytest.mark.parametrize('use_kernels,route', [
-    (None, 'kernels'), (True, 'kernels'), (False, 'scan')])
+    (None, 'scan'), (True, 'kernels'), (False, 'scan')])
 def test_use_kernels_picks_the_route(monkeypatch, use_kernels, route):
-    """On the CPU ``None`` means the kernel wrappers (their plain versions
-    there); ``False`` the scan, in the batched and the single-restart chain
-    update alike."""
+    """In float64 ``None`` means the scan, on the CPU as on the card;
+    ``True`` the kernel wrappers (their plain versions on the CPU);
+    ``False`` the scan, in the batched and the single-restart chain update
+    alike."""
     calls = []
 
     def spy(module, name):

@@ -1,8 +1,9 @@
 """The port stands alone: importing every module of ``remixt_tpu_torch``
 loads neither JAX nor the JAX package, nor pandas, scikit-learn, h5py,
 PyYAML, networkx or matplotlib (which the GPU machine may lack); no source
-of the port or of ``chip_smoke.py`` imports JAX, the JAX package, pandas or
-scikit-learn, nor h5py, PyYAML or networkx outside a function; and the
+of the port, of ``chip_smoke.py`` or of ``run_whole_genome.py`` imports
+JAX, the JAX package, pandas or scikit-learn, nor h5py, PyYAML or networkx
+outside a function; and the
 entry points refuse to fall back to the CPU when no CUDA device was asked
 for and none exists."""
 
@@ -52,6 +53,9 @@ def test_importing_every_module_loads_no_optional_package():
     networkx are imported only inside the functions that need them."""
     modules = port_modules()
     assert 'remixt_tpu_torch.simulations.balanced' in modules
+    for name in ('seqdataio', 'io.bamreader', 'analysis.haplotype',
+                 'analysis.gcbias', 'analysis.segment', 'ui.run'):
+        assert 'remixt_tpu_torch.' + name in modules, name
     code = (
         'import importlib, sys\n'
         'for name in {!r}:\n'
@@ -64,7 +68,8 @@ def test_importing_every_module_loads_no_optional_package():
 
 
 def source_files():
-    files = [os.path.join(REPO, 'chip_smoke.py')]
+    files = [os.path.join(REPO, 'chip_smoke.py'),
+             os.path.join(REPO, 'run_whole_genome.py')]
     for root, _, names in os.walk(PACKAGE):
         files += [os.path.join(root, n) for n in names
                   if n.endswith(('.py', '.cu'))]

@@ -10,6 +10,7 @@ test_fit_many_batched_matches_sequential``): h rtol 1e-7, ELBO rtol 1e-8,
 decoded copy number exact.
 """
 
+import functools
 import pickle
 import types
 
@@ -79,16 +80,20 @@ def assert_results_match(got, ref):
 
 @pytest.fixture(scope='module')
 def port_fit(problem):
-    """The port's fit_many over the problem's grid, batched or sequential
-    (each run once), with the number of calls of each chain
+    """The port's fit_many over the problem's grid, batched or sequential,
+    on the chain route ``use_kernels`` (``None``, the default: the scan in
+    float64; each run once), with the number of calls of each chain
     forward-backward wrapper during the run."""
     _, experiment, init_params = problem
     runs = {}
 
-    def run(batched):
-        if batched not in runs:
+    def run(batched, use_kernels=None):
+        if (batched, use_kernels) not in runs:
             calls = {'fb_chains': 0, 'fb_grouped': 0}
-            originals = []
+            model_class = torch_pipeline.BreakpointModel
+            originals = [(torch_pipeline, 'BreakpointModel', model_class)]
+            torch_pipeline.BreakpointModel = functools.partial(
+                model_class, use_kernels=use_kernels)
             for module, name, key in (
                     (fb_chains, 'forward_backward_chains', 'fb_chains'),
                     (fb_grouped, 'forward_backward_chains_grouped',
@@ -107,8 +112,8 @@ def port_fit(problem):
             finally:
                 for module, name, fn in originals:
                     setattr(module, name, fn)
-            runs[batched] = results, calls
-        return runs[batched]
+            runs[batched, use_kernels] = results, calls
+        return runs[batched, use_kernels]
     return run
 
 
@@ -134,15 +139,35 @@ def test_fit_many_sequential_matches_batched(port_fit):
 
 
 def test_each_path_runs_its_own_chain_forward_backward(problem, port_fit):
-    """The sequential fit runs the single-restart chain once per sweep of
+    """On the kernel route (asked for: float64 takes the scan by default)
+    the sequential fit runs the single-restart chain once per sweep of
     every restart; the batched fit the restart-batched one per sweep of
     every wave."""
     _, _, init_params = problem
     sweeps = CONFIG['num_em_iter'] * CONFIG['num_update_iter']
-    assert port_fit(False)[1] == {'fb_chains': len(init_params) * sweeps,
-                                  'fb_grouped': 0}
+    assert port_fit(False, True)[1] == {
+        'fb_chains': len(init_params) * sweeps, 'fb_grouped': 0}
     waves = -(-len(init_params) // 8)     # restart_chunk_size defaults to 8
-    assert port_fit(True)[1] == {'fb_chains': 0, 'fb_grouped': waves * sweeps}
+    assert port_fit(True, True)[1] == {'fb_chains': 0,
+                                       'fb_grouped': waves * sweeps}
+
+
+@pytest.mark.parametrize('batched', [True, False],
+                         ids=['batched', 'sequential'])
+def test_float64_default_route_is_the_scan_bit_for_bit(port_fit, batched):
+    """A float64 CPU fit on the default route equals the same fit with
+    ``use_kernels=False`` bit for bit, and calls no kernel wrapper."""
+    got, calls = port_fit(batched)
+    ref, _ = port_fit(batched, False)
+    assert calls == {'fb_chains': 0, 'fb_grouped': 0}
+    for init_id in ref:
+        for key in ('h', 'cn'):
+            np.testing.assert_array_equal(got[init_id][key],
+                                          ref[init_id][key])
+        assert got[init_id]['stats']['elbo'] == ref[init_id]['stats']['elbo']
+        assert set(got[init_id]['brk_cn']) == set(ref[init_id]['brk_cn'])
+        for bp_id, cn in ref[init_id]['brk_cn'].items():
+            np.testing.assert_array_equal(got[init_id]['brk_cn'][bp_id], cn)
 
 
 def test_grid_of_one_runs(problem, port_fit):

@@ -7,13 +7,17 @@ single-restart ``BreakpointModel.fit`` against the JAX package's fits on
 JAX side runs its own CPU path, the log-space scan: the scaled recursion
 is a drop-in for it and differs only on states far below a lane's maximum,
 so the tolerances are those of the log-space parity tests (h rtol 1e-7,
-ELBO rtol 1e-8, posteriors atol 1e-9, decoded copy number exact). Every
-chain update of these fits must take the scaled plain version.
+ELBO rtol 1e-8, posteriors atol 1e-9, decoded copy number exact). The
+port's fits ask for the kernel route (``use_kernels=True``: float64 takes
+the scan by default), and every chain update of them must take the scaled
+plain version.
 
 In float32, the port's scaled single-restart fit against its own
 log-space fit: posterior max-abs-diff ≤ 1e-3, the bound ``chip_smoke.py``
 holds the float32 card path to.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -91,6 +95,8 @@ def test_batched_fit_many_scaled_matches_jax(monkeypatch, sim_data,
                             sim_data['adjacencies'], sim_data['breakpoints'])
     init_params = restart_grid(sim_data['h'])
     raw_jax, raw_port = [], []
+    monkeypatch.setattr(torch_pipeline, 'BreakpointModel', functools.partial(
+        torch_pipeline.BreakpointModel, use_kernels=True))
     recording(monkeypatch, jax_fit_batched, raw_jax)
     recording(monkeypatch, torch_pipeline, raw_port)
     ref = jax_pipeline.fit_many(experiment, init_params,
@@ -123,7 +129,7 @@ def test_batched_fit_many_scaled_matches_jax(monkeypatch, sim_data,
 
 def test_single_restart_fit_scaled_matches_jax(sim_data, scaled_only):
     jm = fitted(jax_model(sim_data), sim_data)
-    tm = fitted(port_model(sim_data), sim_data)
+    tm = fitted(port_model(sim_data, use_kernels=True), sim_data)
 
     sweeps = tm.num_em_iter * tm.num_update_iter
     assert len(scaled_only) == sweeps

@@ -200,10 +200,12 @@ def test_rerun_skips_every_task(results):
 
 
 def test_main_registers_fit_only(capsys):
+    """The port's subcommands: ``fit`` and, since the run path was
+    ported, ``run``."""
     with pytest.raises(SystemExit) as exit_info:
         torch_main.main(['--help'])
     assert exit_info.value.code == 0
-    assert '{fit}' in capsys.readouterr().out
+    assert '{fit,run}' in capsys.readouterr().out
 
 
 def test_write_store_without_h5py(monkeypatch, tmp_path):
