@@ -137,10 +137,32 @@ Phases, in order; any failure exits non-zero:
    sums at rtol 1e-12), the grid to the JAX package's size, every
    ``fb_grouped`` launch to one per sweep of every wave, the ELBOs to
    finite values and the results store to the JAX keys (TSV tables where
-   h5py is absent), and the evaluation against the truth to the JAX
-   package's evaluation of its own fit within ``ACCURACY_BARS``. Prints
+   h5py is absent), and the evaluation against the truth of the card's
+   fit of the restart the JAX fit chose to the JAX package's evaluation
+   of it within ``ACCURACY_BARS`` (``check_chosen_restart``). Prints
    the wall time of every step, the peak device memory and the host's
    peak resident set.
+
+12. The read-level simulation benchmark
+   (``remixt_tpu_torch.benchmark.run_read_benchmark.main``) and the
+   results CLI: phase 11's synthetic reference with an impute2 panel of
+   ``PANEL_HAPLOTYPES`` haplotypes at its SNPs, ``benchmark/
+   sim_defs.yaml``'s simulation on chromosomes 20–22 (N=282,
+   ``READ_H_TOTAL``), lengths from the reference's FASTA index
+   (``make_read_fixture``); germline alleles, normal and tumour seqdata
+   simulated, the run from seqdata with the stand-in phasing tools (their
+   truth written from the simulated germline, ``with_germline_truth``,
+   and ``sample_gc`` from numpy's global state seeded with
+   ``RUN_NUMPY_SEED``), the fit on the card at the defaults, the
+   evaluation and the merge. Holds both seqdata stores and the count table
+   to the JAX package's digests (``READ_JAX``), every ``fb_grouped``
+   launch to one per sweep of every wave, the evaluation of the restart
+   the JAX fit chose to the JAX fit's within ``ACCURACY_BARS``
+   (``check_chosen_restart``); then runs ``write_results`` and
+   ``visualize_solutions`` through ``ui.main.main`` on the results store
+   and checks the solution they pick (``results_cli``). Prints the wall
+   time of every step, the peak device memory and the host's peak
+   resident set.
 
 The line before the last holds the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -1840,8 +1862,9 @@ SWITCH_EVERY, SWITCH_RATE = 200, 0.3
 
 # what the JAX package makes of phase 11's inputs on the CPU
 # (``python tests/test_torch_run.py --phase11 WORKDIR``): the digest of its
-# count table (``count_table_digest``), its restart grid's size and its
-# evaluation of its own fit (5 EM x 5 VI, float32) against the truth
+# count table (``count_table_digest``), its restart grid's size, the
+# restart its fit (5 EM x 5 VI, float32) chose and its evaluation against
+# the truth
 RUN_JAX = {'counts': {'rows': 551,
                       'columns': ['chromosome',
                                   'start',
@@ -1867,6 +1890,7 @@ RUN_JAX = {'counts': {'rows': 551,
                                  'length': [161175535.0, 43982854731.56945]}},
            'restarts': 60,
            'segments': 551,
+           'chosen': 2,
            'evaluation': {'proportion_cn_correct': 0.0,
                           'proportion_dom_cn_correct': 0.0,
                           'proportion_clonal_correct': 0.5634057861200833,
@@ -2102,6 +2126,15 @@ def write_bam(path, chromosome_lengths, record_batches):
                                                              offset << 16))
 
 
+def panel_truth_path(ref_dir, chromosome):
+    """The GRCh38 panel file of a chromosome, where the stand-in phasing
+    tools read the sample's true phase: lines of position (1-based) and the
+    alt flag of each haplotype."""
+    return os.path.join(ref_dir, '1kGP_high_coverage_Illumina.chr{}.'
+                        'filtered.SNV_INDEL_SV_phased_panel.bcf'.format(
+                            chromosome))
+
+
 def write_reference(ref_dir, chromosome_lengths, rng, with_hdf5):
     """The synthetic reference of the run path: the FASTA (GC content
     varying by 100 kb block) with its .fai, the gzipped gap table (a
@@ -2171,10 +2204,7 @@ def write_reference(ref_dir, chromosome_lengths, rng, with_hdf5):
                                                       chr(a))
                             for p, r, a in zip(positions.tolist(),
                                                ref.tolist(), alt.tolist()))
-            with open(os.path.join(
-                    ref_dir, '1kGP_high_coverage_Illumina.chr{}.filtered.'
-                    'SNV_INDEL_SV_phased_panel.bcf'.format(chrom)),
-                    'w') as panel:
+            with open(panel_truth_path(ref_dir, chrom), 'w') as panel:
                 panel.writelines('{}\t{}\t{}\n'.format(p + 1, g0, g1)
                                  for p, (g0, g1) in zip(
                                      positions.tolist(), genotype.tolist()))
@@ -2186,6 +2216,33 @@ def write_reference(ref_dir, chromosome_lengths, rng, with_hdf5):
     write_mappability(os.path.join(ref_dir, 'mappability'),
                       {c: t[1] for c, t in truth.items()}, with_hdf5)
     return truth
+
+
+def write_impute_panel(panel_dir, chromosome, positions, a0, a1,
+                       num_haplotypes, rng):
+    """A synthetic 1000 Genomes impute2 panel of one chromosome under the
+    default names (``legend_template``, ``haplotypes_template`` with
+    ``panel_dir`` as the panel directory): a gzipped legend (id position
+    a0 a1) and a gzipped ``.hap`` of ``num_haplotypes`` 0/1 columns drawn
+    from ``rng`` at an alternate allele frequency per row uniform in
+    [0.05, 0.5]."""
+    import gzip
+    os.makedirs(panel_dir, exist_ok=True)
+    stem = os.path.join(panel_dir, 'ALL_1000G_phase1integrated_v3_chr{}_'
+                        'impute'.format(chromosome))
+    with gzip.open(stem + '.legend.gz', 'wt', compresslevel=1) as f:
+        f.write('id position a0 a1\n')
+        f.writelines('snp{}_{} {} {} {}\n'.format(chromosome, p, p, r, a)
+                     for p, r, a in zip(positions.tolist(), list(a0),
+                                        list(a1)))
+    frequency = rng.uniform(0.05, 0.5, len(positions))
+    grid = np.full((len(positions), 2 * num_haplotypes), ord(' '),
+                   dtype=np.uint8)
+    grid[:, 0::2] = ord('0') + (rng.random_sample(
+        (len(positions), num_haplotypes)) < frequency[:, None])
+    grid[:, -1] = ord('\n')
+    with gzip.open(stem + '.hap.gz', 'wb', compresslevel=1) as f:
+        f.write(grid.tobytes())
 
 
 def write_mappability(stem, mappable, with_hdf5):
@@ -2363,16 +2420,23 @@ def make_run_fixture(root, chromosome_lengths, depths=None, with_hdf5=False,
         pairs[sample] = write_sample_bam(bams[sample], chromosome_lengths,
                                          truth, fragments)
     times['bams'] = time.time() - t0
-    config = {
+    return dict(ref_data_dir=ref_dir, bams=bams,
+                breakpoint_file=breakpoint_file, mixture_file=mixture_file,
+                pairs=pairs, config=reference_config(ref_dir,
+                                                     chromosome_lengths),
+                times=times)
+
+
+def reference_config(ref_dir, chromosome_lengths):
+    """The overrides of the defaults that point a run at the synthetic
+    reference."""
+    return {
         'chromosomes': list(chromosome_lengths),
         'genome_fasta_filename': os.path.join(ref_dir, 'genome.fa'),
         'genome_fai_filename': os.path.join(ref_dir, 'genome.fa.fai'),
         'gap_table_filename': os.path.join(ref_dir, 'gap.txt.gz'),
         'mappability_filename': os.path.join(ref_dir, 'mappability'),
     }
-    return dict(ref_data_dir=ref_dir, bams=bams,
-                breakpoint_file=breakpoint_file, mixture_file=mixture_file,
-                pairs=pairs, config=config, times=times)
 
 
 def host_peak_reset():
@@ -2419,17 +2483,70 @@ RUN_STEPS = (
 )
 
 
+@contextlib.contextmanager
+def instrumented(steps, patches=()):
+    """Swaps the module functions of ``steps`` ((module under
+    ``remixt_tpu_torch``, name, label) triples) for timers, and marks the
+    start of every wave and the end of the waves; applies ``patches``
+    ((module, name, function) triples) first, so timers wrap them. Yields
+    (stages {label: [seconds]}, marks [times]); puts every function back.
+    """
+    import importlib
+    import torch
+    from remixt_tpu_torch.models import engine as eng
+    from remixt_tpu_torch.analysis import pipeline
+
+    stages, marks = {}, []
+    timed = stage_timer(stages)
+    elbo0, batched = eng.calculate_elbo_restarts, pipeline.fit_restarts_batched
+
+    def wave_start(*args, **kwargs):
+        torch.cuda.synchronize()
+        marks.append(time.time())
+        return elbo0(*args, **kwargs)
+
+    def waves(*args, **kwargs):
+        out = batched(*args, **kwargs)
+        torch.cuda.synchronize()
+        marks.append(time.time())
+        return out
+
+    originals = []
+    for module, name, fn in patches:
+        originals.append((module, name, getattr(module, name)))
+        setattr(module, name, fn)
+    eng.calculate_elbo_restarts = wave_start
+    pipeline.fit_restarts_batched = waves
+    originals += [(eng, 'calculate_elbo_restarts', elbo0),
+                  (pipeline, 'fit_restarts_batched', batched)]
+    for module, name, step in steps:
+        module = importlib.import_module('remixt_tpu_torch.' + module)
+        originals.append((module, name, timed(module, name, step)))
+    try:
+        yield stages, marks
+    finally:
+        for module, name, fn in reversed(originals):
+            setattr(module, name, fn)
+
+
+@contextlib.contextmanager
+def first_on_path(bin_dir):
+    path = os.environ['PATH']
+    os.environ['PATH'] = bin_dir + os.pathsep + path
+    try:
+        yield
+    finally:
+        os.environ['PATH'] = path
+
+
 def run_cli(label, root, chromosome_lengths, depths):
     """Phase 11's inputs made in ``root``, then the ``run`` CLI on them
     (``remixt_tpu_torch.ui.main.main``), from numpy's global state seeded
     with ``RUN_NUMPY_SEED``, the stand-in phasing tools first on the PATH.
     Returns dict(fixture, raw, results, times {step: [seconds]}, waves,
     launches, whole)."""
-    import importlib
     import torch
     from remixt_tpu_torch.io import store
-    from remixt_tpu_torch.models import engine as eng
-    from remixt_tpu_torch.analysis import pipeline
     from remixt_tpu_torch.ui import main as cli
 
     fresh_directory(root)
@@ -2452,30 +2569,6 @@ def run_cli(label, root, chromosome_lengths, depths):
     raw = os.path.join(root, 'raw')
     results = store.store_name(os.path.join(root, 'results'))
 
-    stages, marks = {}, []
-    timed = stage_timer(stages)
-    elbo0, batched = eng.calculate_elbo_restarts, pipeline.fit_restarts_batched
-
-    def wave_start(*args, **kwargs):
-        torch.cuda.synchronize()
-        marks.append(time.time())
-        return elbo0(*args, **kwargs)
-
-    def waves(*args, **kwargs):
-        out = batched(*args, **kwargs)
-        torch.cuda.synchronize()
-        marks.append(time.time())
-        return out
-
-    eng.calculate_elbo_restarts = wave_start
-    pipeline.fit_restarts_batched = waves
-    originals = [(eng, 'calculate_elbo_restarts', elbo0),
-                 (pipeline, 'fit_restarts_batched', batched)]
-    for module, name, step in RUN_STEPS:
-        module = importlib.import_module('remixt_tpu_torch.' + module)
-        originals.append((module, name, timed(module, name, step)))
-    path = os.environ['PATH']
-    os.environ['PATH'] = bin_dir + os.pathsep + path
     argv = ['run', fixture['ref_data_dir'], raw, fixture['breakpoint_file'],
             '--tumour_sample_ids', 'tumour',
             '--tumour_bam_files', fixture['bams']['tumour'],
@@ -2483,7 +2576,7 @@ def run_cli(label, root, chromosome_lengths, depths):
             '--normal_sample_id', 'normal',
             '--normal_bam_file', fixture['bams']['normal'],
             '--config', config_file]
-    try:
+    with instrumented(RUN_STEPS) as (stages, marks), first_on_path(bin_dir):
         torch.cuda.reset_peak_memory_stats()
         reset_chain_launches()
         np.random.seed(RUN_NUMPY_SEED)
@@ -2491,10 +2584,6 @@ def run_cli(label, root, chromosome_lengths, depths):
         cli.main(argv)
         whole = time.time() - t0
         launches = chain_launches()
-    finally:
-        os.environ['PATH'] = path
-        for module, name, fn in reversed(originals):
-            setattr(module, name, fn)
     return dict(fixture=fixture, raw=raw, results=results, times=stages,
                 waves=np.diff(marks).tolist(), launches=launches,
                 whole=whole)
@@ -2533,13 +2622,58 @@ def check_counts_digest(label, count_file, want):
     return got
 
 
+def check_evaluation(label, evaluation, reference):
+    """Print every metric beside the JAX package's; fail when one of
+    ``ACCURACY_BARS`` is missed."""
+    from remixt_tpu_torch.benchmark.export_evaluation import ACCURACY_BARS
+    misses = []
+    for name, value in evaluation.items():
+        line = '{:<36s} {:12.6f}'.format(name, value)
+        if name in reference:
+            line += '  JAX {:12.6f}'.format(reference[name])
+        bar = ACCURACY_BARS.get(name)
+        if bar is not None:
+            ok = abs(value - reference[name]) <= bar
+            line += '  bar ±{} {}'.format(bar, 'ok' if ok else 'MISS')
+            if not ok:
+                misses.append(name)
+        log('{}: {}'.format(label, line))
+    if misses:
+        raise AssertionError('{}: outside the bars of the JAX package\'s '
+                             'evaluation: {}'.format(label, misses))
+
+
+def check_chosen_restart(label, mixture, tables, reference):
+    """The card's fit of the restart that the JAX fit chose
+    (``reference['chosen']``), evaluated against the truth and held to the
+    JAX package's evaluation of it within ``ACCURACY_BARS``; the card's own
+    choice printed beside it. At float32 the two packages' fits of one
+    restart part by float rounding (their float64 fits are equal), so
+    between restarts whose ELBOs lie that close the choice may differ."""
+    from remixt_tpu_torch.analysis.pipeline import optimal_init_id
+    from remixt_tpu_torch.simulations import pipeline as sim_pipeline
+    stats = tables['stats']
+    ids = list(stats['init_id'])
+    chosen, own = reference['chosen'], int(optimal_init_id(stats, {}))
+    log('{}: the JAX fit chose restart {}, this fit restart {} (ELBOs here '
+        '{:.3f} and {:.3f})'.format(label, chosen, own,
+                                    stats['elbo'][ids.index(chosen)],
+                                    stats['elbo'][ids.index(own)]))
+    if own != chosen:
+        log('{}: this fit\'s own choice, restart {}: {}'.format(
+            label, own, json.dumps(evaluation_metrics(
+                sim_pipeline.evaluate_tables(mixture, tables)))))
+    check_evaluation(label, evaluation_metrics(sim_pipeline.evaluate_tables(
+        mixture, tables, 'solutions/solution_{}'.format(chosen))),
+        reference['evaluation'])
+
+
 def phase_run(smi):
     """Phase 11: the run CLI from two synthetic BAMs over RUN_CHROMOSOMES
     to a results store, the fit on the card. Returns the fb_grouped
     launches."""
     import torch
     from remixt_tpu_torch import config as config_mod
-    from remixt_tpu_torch.benchmark.export_evaluation import ACCURACY_BARS
     from remixt_tpu_torch.io.store import read_store
     from remixt_tpu_torch.simulations import pipeline as sim_pipeline
 
@@ -2590,29 +2724,402 @@ def phase_run(smi):
 
     with open(run['fixture']['mixture_file'], 'rb') as f:
         mixture = pickle.load(f)
-    evaluation = evaluation_metrics(sim_pipeline.evaluate_tables(mixture,
-                                                                 tables))
-    misses = []
-    for name, value in evaluation.items():
-        reference = RUN_JAX['evaluation'].get(name)
-        line = '{:<36s} {:12.6f}'.format(name, value)
-        if reference is not None:
-            line += '  JAX {:12.6f}'.format(reference)
-        bar = ACCURACY_BARS.get(name)
-        if bar is not None:
-            ok = abs(value - reference) <= bar
-            line += '  bar ±{} {}'.format(bar, 'ok' if ok else 'MISS')
-            if not ok:
-                misses.append(name)
-        log('phase 11: ' + line)
-    if misses:
-        raise AssertionError('phase 11: outside the bars of the JAX '
-                             'package\'s evaluation: {}'.format(misses))
+    check_chosen_restart('phase 11', mixture, tables, RUN_JAX)
     log('phase 11: run CLI {:.1f} s, phase {:.1f} s; max_memory_allocated '
         '{:.3f} GB; host peak RSS {:.3f} GB ({}); {}'.format(
             run['whole'], time.time() - t_phase, device_gb, host_peak_gb(),
             'since the phase began' if reset else 'of the whole script',
             smi))
+    return expected
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the read-level simulation benchmark and the results CLI
+# ---------------------------------------------------------------------------
+
+# the haploid read depth of phase 12's simulation (benchmark/sim_defs.yaml
+# has 0.1; cut for the run's time: at 0.02 the phase took 255 s on the card)
+READ_H_TOTAL = 0.01
+# haplotypes of each chromosome's synthetic impute2 panel, and its seed
+PANEL_HAPLOTYPES, PANEL_SEED = 40, 13
+# the one simulation of benchmark/sim_defs.yaml
+READ_SIM_ID = 'test_proportion_subclonal_0_0'
+# the read benchmark's own steps, timed with those of the run from seqdata
+READ_STEPS = (
+    ('simulations.pipeline', 'simulate_germline_alleles', 'germline'),
+    ('simulations.pipeline', 'simulate_genome_mixture', 'mixture'),
+    ('simulations.pipeline', 'simulate_normal_data', 'normal reads'),
+    ('simulations.pipeline', 'simulate_tumour_data', 'tumour reads'),
+    ('simulations.pipeline', 'evaluate_results_task', 'evaluate'),
+) + RUN_STEPS[2:]
+# what the JAX package makes of phase 12's inputs on the CPU
+# (``python tests/test_torch_read_benchmark.py --phase12 WORKDIR``): the
+# digests of its simulated seqdata (``seqdata_digest``) and count table
+# (``count_table_digest``), its restart grid's size, the restart its fit
+# (5 EM x 5 VI, float32) chose and its evaluation against the truth
+READ_JAX = {'seqdata': {'normal': {'fragments': {'rows': 3249199,
+                                                 'fragment_id': 'f7098fd9eae3fc20',
+                                                 'start': '1fce017c5d30a08c',
+                                                 'end': '788d534ea24cfe15',
+                                                 'mapping_quality': '46d48f068daac7c7',
+                                                 'is_duplicate': '5fcc2bb68cf51790'},
+                                   'alleles': {'rows': 644656,
+                                               'fragment_id': '2c0aabbc3f39f005',
+                                               'position': 'e4b5ef523de7ba6b',
+                                               'is_alt': '0d888b3304b1cb54'}},
+                        'tumour': {'fragments': {'rows': 3744995,
+                                                 'fragment_id': '5e81e2090345ca76',
+                                                 'start': 'fb35acefa84b0388',
+                                                 'end': '7e66c7cc6791a4db',
+                                                 'mapping_quality': 'ace2dab5497bdcc5',
+                                                 'is_duplicate': '6f1340a71aae6c85'},
+                                   'alleles': {'rows': 742048,
+                                               'fragment_id': 'f93fd8dc7740ae68',
+                                               'position': '704435fb79777dda',
+                                               'is_alt': '55196edd45b4f41f'}}},
+            'counts': {'rows': 541,
+                       'columns': ['chromosome',
+                                   'start',
+                                   'end',
+                                   'readcount',
+                                   'allele_b_readcount',
+                                   'allele_a_readcount',
+                                   'major_readcount',
+                                   'minor_readcount',
+                                   'major_is_allele_a',
+                                   'bias',
+                                   'length'],
+                       'ints': {'chromosome': '5e7375ae997942a7',
+                                'start': '5767b952a001b981',
+                                'end': '5b9072ec0cd0896c',
+                                'allele_b_readcount': '3f6997f1031d0be3',
+                                'allele_a_readcount': 'a9932c25782b2645',
+                                'major_readcount': 'a9932c25782b2645',
+                                'minor_readcount': '3f6997f1031d0be3',
+                                'major_is_allele_a': 'cb8960c255bda83b'},
+                       'floats': {'readcount': [3713973.0, 935647922.0],
+                                  'bias': [0.9999999999999737, 268.66806214778904],
+                                  'length': [161175534.99999997, 43302718654.08424]}},
+            'restarts': 84,
+            'segments': 541,
+            'chosen': 26,
+            'evaluation': {'proportion_cn_correct': 0.002011514961001991,
+                           'proportion_dom_cn_correct': 0.002011514961001991,
+                           'proportion_clonal_correct': 0.6123104477363763,
+                           'proportion_subclonal_correct': 0.6123104477363763,
+                           'pred_ploidy': 5.329650973393698,
+                           'pred_ploidy_1': 5.381831218987423,
+                           'pred_ploidy_2': 5.277470727799973,
+                           'pred_proportion_divergent': 0.42593991699794886,
+                           'true_ploidy': 2.518175345284258,
+                           'true_ploidy_1': 2.4966881481113123,
+                           'true_ploidy_2': 2.5396625424572035,
+                           'true_proportion_divergent': 0.34928632003610227,
+                           'brk_cn_correct_proportion': 0.4253393665158371,
+                           'brk_cn_present_num_true': 102.0,
+                           'brk_cn_present_num_pos': 146.0,
+                           'brk_cn_present_num_true_pos': 91.0,
+                           'brk_cn_subclonal_num_true': 68.0,
+                           'brk_cn_subclonal_num_pos': 14.0,
+                           'brk_cn_subclonal_num_true_pos': 5.0,
+                           'mix_true_0': 0.4,
+                           'mix_true_1': 0.4,
+                           'mix_true_2': 0.19999999999999996,
+                           'mix_pred_0': 0.61720210313797,
+                           'mix_pred_1': 0.2173549085855484,
+                           'mix_pred_2': 0.16544300317764282}}
+
+
+def read_sim_defs(chromosome_lengths, h_total, N=None, overrides=None):
+    """``benchmark/sim_defs.yaml`` on the given chromosomes: ``h_total``,
+    and N scaled to their share of the autosomes unless given, the
+    settings of ``overrides`` in every simulation; the chromosome lengths
+    left to the reference's FASTA index."""
+    import yaml
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, 'benchmark', 'sim_defs.yaml')) as f:
+        sim_defs = yaml.safe_load(f)
+    defaults = sim_defs['defaults']
+    share = sum(chromosome_lengths.values()) / float(sum(AUTOSOMES.values()))
+    defaults.update(h_total=h_total, chromosomes=list(chromosome_lengths),
+                    N=int(round(defaults['N'] * share)) if N is None else N)
+    for block in sim_defs['simulations'].values():
+        block.update(overrides or {})
+    return sim_defs
+
+
+def make_read_fixture(root, chromosome_lengths, h_total, N=None,
+                      with_hdf5=False, sim_overrides=None):
+    """The read benchmark's inputs, made from seeds: phase 11's synthetic
+    reference with an impute2 panel per chromosome at its SNPs
+    (``PANEL_HAPLOTYPES`` haplotypes), the sim defs of ``read_sim_defs``
+    (with ``sim_overrides``) and the config as files. Returns
+    dict(ref_data_dir, sim_defs, config, config_file, times)."""
+    ref_dir = os.path.join(root, 'ref')
+    t0 = time.time()
+    truth = write_reference(ref_dir, chromosome_lengths,
+                            np.random.RandomState(RUN_SEED), with_hdf5)
+    panel_rng = np.random.RandomState(PANEL_SEED)
+    for chrom, (bases, _, positions, alt, _) in truth.items():
+        write_impute_panel(
+            os.path.join(ref_dir, 'ALL_1000G_phase1integrated_v3_impute'),
+            chrom, positions + 1, list(bases[positions].tobytes().decode()),
+            list(alt.tobytes().decode()), PANEL_HAPLOTYPES, panel_rng)
+    sim_defs = read_sim_defs(chromosome_lengths, h_total, N, sim_overrides)
+    sim_defs_file = os.path.join(root, 'sim_defs.yaml')
+    with open(sim_defs_file, 'w') as f:
+        json.dump(sim_defs, f)
+    config = reference_config(ref_dir, chromosome_lengths)
+    config_file = os.path.join(root, 'config.yaml')
+    with open(config_file, 'w') as f:
+        json.dump(config, f)
+    return dict(ref_data_dir=ref_dir, sim_defs=sim_defs_file, config=config,
+                config_file=config_file,
+                times={'reference and panel': time.time() - t0})
+
+
+def write_germline_truth(germline_file, ref_dir, chromosomes):
+    """The stand-in phasing tools' truth (``panel_truth_path``) from a
+    germline allele store of either package, in either form."""
+    from remixt_tpu_torch.simulations.pipeline import load_germline_alleles
+    for chrom in chromosomes:
+        alleles = load_germline_alleles(germline_file, chrom)
+        with open(panel_truth_path(ref_dir, chrom), 'w') as f:
+            f.writelines('{}\t{}\t{}\n'.format(*row) for row in zip(
+                alleles['position'].tolist(), alleles['is_alt_0'].tolist(),
+                alleles['is_alt_1'].tolist()))
+
+
+def with_germline_truth(simulate, ref_dir):
+    """``simulate_germline_alleles`` followed by ``write_germline_truth``:
+    the sample's true phase is its simulated germline, known only once
+    that task has run, and phasing runs after it."""
+    def wrapper(germline_file, params, config, ref_data_dir):
+        simulate(germline_file, params, config, ref_data_dir)
+        write_germline_truth(germline_file, ref_dir, params['chromosomes'])
+    return wrapper
+
+
+def seeded(fn, seed):
+    """``fn`` from numpy's global state seeded with ``seed``: the two
+    packages' simulation tasks leave that state differently, and
+    ``sample_gc`` draws from it."""
+    def wrapper(*args, **kwargs):
+        np.random.seed(seed)
+        return fn(*args, **kwargs)
+    return wrapper
+
+
+def seqdata_digest(path):
+    """A seqdata store's digest: per record type its rows and the sha256
+    (first 16 hex digits) of each column over the chromosomes in sorted
+    order, as int64."""
+    from remixt_tpu_torch import seqdataio
+    chromosomes = sorted(seqdataio.read_chromosomes(path))
+    digest = {}
+    for record_type, columns in seqdataio.COLUMNS.items():
+        hashes = {col: hashlib.sha256() for col in columns}
+        rows = 0
+        for chrom in chromosomes:
+            table = seqdataio.read_seq_data(path, record_type, chrom)
+            rows += len(table)
+            for col in columns:
+                hashes[col].update(np.ascontiguousarray(
+                    table[col], dtype=np.int64).tobytes())
+        digest[record_type] = dict(
+            rows=rows, **{col: h.hexdigest()[:16] for col, h in
+                          hashes.items()})
+    return digest
+
+
+def read_benchmark_paths(raw):
+    """The stores a read benchmark run writes for ``READ_SIM_ID``, in the
+    form ``io/store.store_name`` picks."""
+    from remixt_tpu_torch.io.store import store_name
+    sim_dir = os.path.join(raw, READ_SIM_ID)
+    return dict(
+        sim_dir=sim_dir, mixture=os.path.join(sim_dir, 'mixture.pickle'),
+        seqdata={name: store_name(os.path.join(sim_dir, name))
+                 for name in ('normal', 'tumour')},
+        counts=os.path.join(sim_dir, 'remixt', 'counts',
+                            'sample_tumour.tsv'),
+        results=store_name(os.path.join(sim_dir, 'results_remixt')),
+        evaluation=store_name(os.path.join(sim_dir, 'evaluation_remixt')))
+
+
+def read_benchmark(label, root, chromosome_lengths, h_total, N=None):
+    """The read benchmark's inputs made in ``root``, then its runner
+    (``remixt_tpu_torch.benchmark.run_read_benchmark.main``) on them, the
+    fit on the card at the default config, the stand-in phasing tools
+    first on the PATH, their truth written from the simulated germline
+    alleles, ``sample_gc`` from numpy's global state seeded with
+    ``RUN_NUMPY_SEED``. Returns dict(fixture, table, the paths of ``read_benchmark_paths``,
+    times {step: [seconds]}, waves, launches, whole)."""
+    import torch
+    from remixt_tpu_torch.analysis import gcbias
+    from remixt_tpu_torch.benchmark import run_read_benchmark
+    from remixt_tpu_torch.io import store
+    from remixt_tpu_torch.simulations import pipeline as sim_pipeline
+
+    fresh_directory(root)
+    fixture = make_read_fixture(os.path.join(root, 'inputs'),
+                                chromosome_lengths, h_total, N=N)
+    log('{}: inputs made: reference and impute2 panel of {} chromosomes '
+        '({:.1f} Mb) in {:.1f} s; h_total {}'.format(
+            label, len(chromosome_lengths),
+            sum(chromosome_lengths.values()) / 1e6,
+            fixture['times']['reference and panel'], h_total))
+    bin_dir = write_standin_tools(os.path.join(root, 'bin'))
+    raw = os.path.join(root, 'raw')
+    table = store.store_name(os.path.join(root, 'evaluation'))
+    argv = [fixture['ref_data_dir'], fixture['sim_defs'], raw, table,
+            '--config', fixture['config_file']]
+    patches = [
+        (sim_pipeline, 'simulate_germline_alleles', with_germline_truth(
+            sim_pipeline.simulate_germline_alleles, fixture['ref_data_dir'])),
+        (gcbias, 'sample_gc', seeded(gcbias.sample_gc, RUN_NUMPY_SEED))]
+    with instrumented(READ_STEPS, patches) as (stages, marks), \
+            first_on_path(bin_dir):
+        torch.cuda.reset_peak_memory_stats()
+        reset_chain_launches()
+        t0 = time.time()
+        run_read_benchmark.main(argv)
+        whole = time.time() - t0
+        launches = chain_launches()
+    return dict(fixture=fixture, table=table, times=stages,
+                waves=np.diff(marks).tolist(), launches=launches,
+                whole=whole, **read_benchmark_paths(raw))
+
+
+def results_cli(label, results, out_dir):
+    """``write_results`` and ``visualize_solutions`` through
+    ``ui.main.main`` on a results store. The solution written is the
+    workflow's chosen one (``optimal_init_id``), and the report's ``best``
+    is the restart of the highest ELBO, which is the chosen one unless
+    that restart is divergent beyond ``max_prop_diverge``. Returns the
+    seconds of each."""
+    import yaml
+    from remixt_tpu_torch.analysis.pipeline import optimal_init_id
+    from remixt_tpu_torch.io.store import read_store
+    from remixt_tpu_torch.io.table import read_tsv
+    from remixt_tpu_torch.ui import main as cli
+
+    os.makedirs(out_dir, exist_ok=True)
+    cn, brk_cn, meta, html = (os.path.join(out_dir, name) for name in (
+        'cn.tsv', 'brk_cn.tsv', 'meta.yaml', 'solutions.html'))
+    t0 = time.time()
+    cli.main(['write_results', results, cn, brk_cn, meta])
+    t_write = time.time() - t0
+    t0 = time.time()
+    cli.main(['visualize_solutions', results, html])
+    t_report = time.time() - t0
+
+    tables = read_store(results, keys=['stats', 'cn'])
+    stats = tables['stats']
+    with open(meta) as f:
+        metadata = yaml.safe_load(f)
+    chosen = int(optimal_init_id(stats, {}))
+    if metadata['init_id'] != chosen:
+        raise AssertionError('{}: write_results wrote solution {}, the '
+                             'workflow chose {}'.format(
+                                 label, metadata['init_id'], chosen))
+    written = read_tsv(cn, str_columns=('chromosome',))
+    if written.columns != tables['cn'].columns or \
+            len(written) != len(tables['cn']):
+        raise AssertionError('{}: the cn TSV is not the chosen solution\'s '
+                             'table'.format(label))
+    with open(html) as f:
+        report = json.loads(f.read().split('const DATA = ', 1)[1].split(
+            ';\n', 1)[0])
+    top = int(stats['init_id'][np.nanargmax(stats['elbo'])])
+    if report['best'] != str(top) or str(top) not in report['solutions']:
+        raise AssertionError('{}: the report\'s best is {}, the highest '
+                             'ELBO restart {}'.format(label, report['best'],
+                                                      top))
+    if top != chosen and stats['proportion_divergent'][
+            list(stats['init_id']).index(top)] < 0.5:
+        raise AssertionError('{}: the report\'s best {} is not the chosen '
+                             'solution {}'.format(label, top, chosen))
+    log('{}: write_results {:.3f} s wrote solution {} (the workflow\'s '
+        'choice; {} segments); visualize_solutions {:.3f} s, a report of '
+        '{:.1f} kB, {} solutions embedded, best {}{}'.format(
+            label, t_write, chosen, len(written), t_report,
+            os.path.getsize(html) / 1e3, len(report['solutions']),
+            report['best'], '' if top == chosen else
+            ' (the highest ELBO, divergent beyond 0.5)'))
+    return {'write_results': t_write, 'visualize_solutions': t_report}
+
+
+def phase_read_benchmark(smi):
+    """Phase 12: the read benchmark over RUN_CHROMOSOMES at READ_H_TOTAL,
+    the fit on the card, then the results CLI on its results store.
+    Returns the fb_grouped launches."""
+    import torch
+    from remixt_tpu_torch import config as config_mod
+    from remixt_tpu_torch.io.store import read_store
+
+    if READ_JAX is None:
+        raise AssertionError('phase 12: READ_JAX is not set; run python '
+                             'tests/test_torch_read_benchmark.py --phase12 '
+                             'WORKDIR')
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(here, 'build', 'chip_smoke', 'read')
+    t_phase = time.time()
+    reset = host_peak_reset()
+    run = read_benchmark('phase 12', root, RUN_CHROMOSOMES, READ_H_TOTAL)
+    device_gb = torch.cuda.max_memory_allocated() / 1e9
+    log_run_steps('phase 12', run)
+
+    for sample, path in run['seqdata'].items():
+        digest = seqdata_digest(path)
+        if digest != READ_JAX['seqdata'][sample]:
+            raise AssertionError('phase 12: the {} seqdata is not the JAX '
+                                 'package\'s: {} against {}'.format(
+                                     sample, digest,
+                                     READ_JAX['seqdata'][sample]))
+        log('phase 12: {} seqdata ({}) is the JAX package\'s for the same '
+            'seed: {} fragments, {} allele reads'.format(
+                sample, 'HDF5' if path.endswith('.h5') else '.npy directory',
+                digest['fragments']['rows'], digest['alleles']['rows']))
+    digest = check_counts_digest('phase 12', run['counts'],
+                                 READ_JAX['counts'])
+    log('phase 12: the count table ({} segments, {} reads) is the JAX '
+        'package\'s'.format(digest['rows'],
+                             int(digest['floats']['readcount'][0])))
+
+    stats = read_store(run['results'], keys=['stats'])['stats']
+    restarts = len(stats['init_id'])
+    if restarts != READ_JAX['restarts']:
+        raise AssertionError('phase 12: init\'s grid has {} restarts, the '
+                             'JAX package\'s {}'.format(
+                                 restarts, READ_JAX['restarts']))
+    sweeps = (config_mod.get_param({}, 'num_em_iter')
+              * config_mod.get_param({}, 'num_update_iter'))
+    expected = -(-restarts // WAVE) * sweeps
+    expect_launches('phase 12', run['launches'], 'fb_grouped', expected)
+    if not np.all(np.isfinite(stats['elbo'])):
+        raise AssertionError('phase 12: non-finite ELBO')
+    log('phase 12: grid of {} restarts in {} waves, fb_grouped launches {}'
+        .format(restarts, len(run['waves']), expected))
+
+    with open(run['mixture'], 'rb') as f:
+        mixture = pickle.load(f)
+    check_chosen_restart('phase 12', mixture, read_store(run['results']),
+                         READ_JAX)
+    merged = read_store(run['table'])
+    for name in ('simulations', 'cn_evaluation', 'brk_cn_evaluation',
+                 'mix_results'):
+        if name not in merged or len(merged[name]) != 1:
+            raise AssertionError('phase 12: the merged evaluation has no '
+                                 'row of {}'.format(name))
+    cli_times = results_cli('phase 12', run['results'],
+                            os.path.join(root, 'results_cli'))
+    log('phase 12: read benchmark {:.1f} s, results CLI {:.1f} s, phase '
+        '{:.1f} s; max_memory_allocated {:.3f} GB; host peak RSS {:.3f} GB '
+        '({}); {}'.format(run['whole'], sum(cli_times.values()),
+                          time.time() - t_phase, device_gb, host_peak_gb(),
+                          'since the phase began' if reset else
+                          'of the whole script', smi))
     return expected
 
 
@@ -2651,6 +3158,7 @@ def main():
     chains['launches'] += accuracy_chains
     phase_float64()
     grouped['launches'] += phase_run(smi)
+    grouped['launches'] += phase_read_benchmark(smi)
 
     print(smi)
     table = {'kernels': [

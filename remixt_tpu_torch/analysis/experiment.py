@@ -212,7 +212,7 @@ class Experiment:
         if self.l.shape != (self.x.shape[0],):
             raise ValueError('l must be (N,)')
         self.adjacencies = set(adjacencies)
-        self.breakpoints = dict(breakpoints)
+        self._breakpoints = dict(breakpoints)
         if segment_chromosome_id is None:
             segment_chromosome_id = np.full(self.x.shape[0], '1')
         self.segment_chromosome_id = np.asarray(segment_chromosome_id)
@@ -266,6 +266,19 @@ class Experiment:
         experiment.count_table = count_table
         experiment.breakpoint_segment_data = breakpoint_segment_data
         return experiment
+
+    @property
+    def breakpoints(self):
+        """{breakpoint id: frozenset of two (segment, side)}; of an
+        experiment made from tables, built anew from the breakpoint segment
+        table at every access, as the JAX package builds it. A frozenset's
+        iteration order, which sets the slot order of a junction's
+        breakends and so the model, changes with each pickle round trip
+        where its two breakends share a hash slot; a fresh one has the JAX
+        package's order."""
+        if self.breakpoint_segment_data is not None:
+            return convert_breakpoints_to_dict(self.breakpoint_segment_data)
+        return self._breakpoints
 
     @property
     def chains(self):

@@ -20,8 +20,8 @@ Usage:
         <raw_data_dir> <table> [--config CONFIG] [--simulate_only] \\
         [--device DEVICE]
 
-Simulations need ``chromosome_lengths`` in the sim defs: reading them from
-a reference dataset (``--ref_data_dir``) is not ported yet.
+A simulation without ``chromosome_lengths`` takes them from the FASTA
+index of the reference dataset (``--ref_data_dir``).
 
 Each task's start is logged with its time. The last line printed is a JSON
 object: the run's wall time, the device with its peak memory (CUDA), and

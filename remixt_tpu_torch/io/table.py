@@ -297,12 +297,15 @@ def left_join(left, right, on, fill_value):
 
 
 def _tsv_field(value):
-    """One value as ``DataFrame.to_csv`` writes it: floats by ``repr``,
-    NaN and None empty."""
+    """One value as ``DataFrame.to_csv`` writes it: floats in the shortest
+    form that reads back as their own type (``repr`` of a float64), NaN
+    and None empty."""
     if value is None:
         return ''
-    if isinstance(value, (float, np.floating)):
-        return '' if np.isnan(value) else repr(float(value))
+    if isinstance(value, np.floating):
+        return '' if np.isnan(value) else str(value)
+    if isinstance(value, float):
+        return '' if np.isnan(value) else repr(value)
     if isinstance(value, (bool, np.bool_)):
         return str(bool(value))
     if isinstance(value, (int, np.integer)):
@@ -340,9 +343,12 @@ def _typed_fields(fields, dtype):
 
 
 def _format_column(values):
-    """A column's TSV fields as :func:`write_tsv` writes its values."""
+    """A column's TSV fields as :func:`write_tsv` writes its values: a
+    float column as pandas' ``to_csv`` writes it (``astype(str)``, the
+    shortest text that reads back as the column's type, ``repr`` for
+    float64; NaN empty)."""
     if values.dtype.kind == 'f':
-        return ['' if v != v else repr(v) for v in values.tolist()]
+        return np.where(np.isnan(values), '', values.astype(str)).tolist()
     if values.dtype == object:
         return [_tsv_field(v) for v in values.tolist()]
     return [str(v) for v in values.tolist()]

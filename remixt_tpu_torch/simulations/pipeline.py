@@ -16,23 +16,30 @@ a length-weighted reduction over that aligned table. ``evaluate_tables``
 evaluates ``collate_tables``' results in memory; ``evaluate_results_task``
 and ``merge_evaluations`` read and write stores: the JAX package's HDF5
 layout, or without h5py a directory of TSV tables (``io/store.py``). The
-read-level tasks (germline alleles, read simulation and resampling) and
-the plots are not ported: a plot file name raises.
+read-level tasks simulate germline alleles (a store of either form, as
+``write_germline_alleles`` says) and the normal and tumour seqdata, or
+resample real seqdata to the mixture's depths (``seqread.py``). The plots
+are not ported: a plot file name raises.
 """
 
 import collections
 import csv
 import hashlib
 import itertools
+import os
 import pickle
+import shutil
 
 import numpy as np
 
+from remixt_tpu_torch import config as config_mod
 from remixt_tpu_torch import segalg
 from remixt_tpu_torch.io import store
 from remixt_tpu_torch.io.table import (
     NA_FIELDS, Series, Table, inner_join, left_join, write_tsv)
 from remixt_tpu_torch.simulations import genome as sim_genome
+from remixt_tpu_torch.simulations import haplotype as sim_haplotype
+from remixt_tpu_torch.simulations import seqread
 
 
 def _load_pickle(filename):
@@ -116,14 +123,20 @@ def create_simulations(sim_defs_filename, config, ref_data_dir):
 
     Each simulation block contributes ``num_simulations`` parameter sets
     (scalar values broadcast; list values must match) replicated
-    ``num_replicates`` times with consecutive random seeds. Every
-    simulation needs ``chromosome_lengths`` in the definition: reading
-    them from reference data (``ref_data_dir``) is not ported yet.
+    ``num_replicates`` times with consecutive random seeds. A simulation
+    without ``chromosome_lengths`` takes the lengths of its
+    ``chromosomes`` (by default 1 to 22) from the reference's FASTA index
+    (``config.get_chromosome_lengths``), which needs ``ref_data_dir``.
     """
     import yaml
 
     with open(sim_defs_filename) as f:
         sim_defs = yaml.safe_load(f)
+
+    ref_chrom_lengths = None
+    if ref_data_dir is not None:
+        ref_chrom_lengths = config_mod.get_chromosome_lengths(
+            config, ref_data_dir)
 
     instances = {}
     for sim_name, block in sim_defs['simulations'].items():
@@ -155,13 +168,14 @@ def create_simulations(sim_defs_filename, config, ref_data_dir):
 
     for params in instances.values():
         if 'chromosome_lengths' not in params:
-            if ref_data_dir is None:
+            if ref_chrom_lengths is None:
                 raise ValueError(
                     'chromosome_lengths required in sim defs when no '
                     'ref_data_dir is provided')
-            raise NotImplementedError(
-                'chromosome lengths from reference data are not ported yet; '
-                'give chromosome_lengths in the sim defs')
+            chromosomes = params.get(
+                'chromosomes', [str(a) for a in range(1, 23)])
+            params['chromosome_lengths'] = {
+                c: ref_chrom_lengths[c] for c in chromosomes}
         params.setdefault(
             'chromosomes', list(params['chromosome_lengths'].keys()))
 
@@ -203,6 +217,134 @@ def simulate_experiment(experiment_filename, experiment_plot_filename, params):
     """Sample a full count-level experiment and pickle it."""
     _no_plot(experiment_plot_filename)
     _dump_pickle(sample_experiment(params), experiment_filename)
+
+
+# the germline allele table's columns, in the order create_sim_alleles
+# makes them
+GERMLINE_COLUMNS = ('position', 'ref', 'alt', 'is_alt_0', 'is_alt_1',
+                    'nt_0', 'nt_1')
+
+
+def write_germline_alleles(germline_alleles_filename, tables):
+    """Write ``{chromosome: Table}`` as a germline allele store: for a name
+    ending in ``.h5`` the JAX package's HDF5 layout (a group per
+    chromosome, a dataset per column, strings as bytes), else a directory
+    ``chromosome_X/<column>.npy``."""
+    if store.is_hdf5(germline_alleles_filename):
+        import h5py
+        with h5py.File(germline_alleles_filename, 'w') as h5:
+            for chromosome, table in tables.items():
+                group = h5.create_group('chromosome_{}'.format(chromosome))
+                for col, values in table.items():
+                    if values.dtype == object:
+                        values = values.astype(str).astype('S')
+                    group.create_dataset(col, data=values,
+                                         compression='gzip',
+                                         compression_opts=4)
+        return
+    shutil.rmtree(germline_alleles_filename, ignore_errors=True)
+    for chromosome, table in tables.items():
+        path = os.path.join(germline_alleles_filename,
+                            'chromosome_{}'.format(chromosome))
+        os.makedirs(path)
+        for col, values in table.items():
+            if values.dtype == object:
+                values = values.astype(str)
+            np.save(os.path.join(path, col + '.npy'), values)
+
+
+def load_germline_alleles(germline_alleles_filename, chromosome):
+    """One chromosome's germline allele table from either form, columns in
+    ``GERMLINE_COLUMNS`` order."""
+    name = 'chromosome_{}'.format(chromosome)
+    if store.is_hdf5(germline_alleles_filename):
+        import h5py
+        with h5py.File(germline_alleles_filename, 'r') as h5:
+            data = {col: h5[name][col][()] for col in h5[name]}
+    else:
+        path = os.path.join(germline_alleles_filename, name)
+        data = {col[:-len('.npy')]: np.load(os.path.join(path, col))
+                for col in os.listdir(path) if col.endswith('.npy')}
+    order = [c for c in GERMLINE_COLUMNS if c in data]
+    order += sorted(set(data) - set(order))
+    return Table([(col, data[col].astype(str) if data[col].dtype.kind == 'S'
+                   else data[col]) for col in order])
+
+
+class _GermlineAllelesAccessor:
+    """Mapping-style access ('/chromosome_X') over a germline allele
+    store."""
+
+    def __init__(self, filename):
+        self.filename = filename
+
+    def __getitem__(self, key):
+        chromosome = key.split('chromosome_')[-1]
+        return load_germline_alleles(self.filename, chromosome)
+
+
+def simulate_germline_alleles(germline_alleles_filename, params, config,
+                              ref_data_dir):
+    """Germline haplotypes of every chromosome of ``params`` from the
+    impute2 panel, drawn from ``RandomState(params['random_seed'])`` (the
+    JAX task draws the same from numpy's global generator seeded alike),
+    written as a germline allele store."""
+    rng = np.random.RandomState(params['random_seed'])
+    write_germline_alleles(germline_alleles_filename, {
+        chromosome: sim_haplotype.create_sim_alleles(
+            chromosome, config, ref_data_dir, rng=rng)
+        for chromosome in params['chromosomes']})
+
+
+def _read_sim_inputs(mixture_filename, germline_alleles_filename):
+    return (_load_pickle(mixture_filename),
+            _GermlineAllelesAccessor(germline_alleles_filename))
+
+
+def simulate_normal_data(read_data_filename, mixture_filename,
+                         germline_alleles_filename, params):
+    """Seqdata of the normal genome at ``h_total``."""
+    mixture, alleles = _read_sim_inputs(
+        mixture_filename, germline_alleles_filename)
+    seqread.simulate_mixture_read_data(
+        read_data_filename, [mixture.genome_collection.genomes[0]],
+        [params['h_total']], alleles, params,
+        rng=np.random.RandomState(params['random_seed']))
+
+
+def resample_normal_data(read_data_filename, source_filename, mixture_filename,
+                         germline_alleles_filename, params):
+    """The source seqdata resampled to the normal genome at ``h_total``."""
+    mixture, alleles = _read_sim_inputs(
+        mixture_filename, germline_alleles_filename)
+    seqread.resample_mixture_read_data(
+        read_data_filename, source_filename,
+        [mixture.genome_collection.genomes[0]],
+        [params['h_total']], alleles, params,
+        rng=np.random.RandomState(params['random_seed']))
+
+
+def simulate_tumour_data(read_data_filename, mixture_filename,
+                         germline_alleles_filename, params):
+    """Seqdata of the mixture, each genome at its fraction of ``h_total``."""
+    mixture, alleles = _read_sim_inputs(
+        mixture_filename, germline_alleles_filename)
+    seqread.simulate_mixture_read_data(
+        read_data_filename, mixture.genome_collection.genomes,
+        mixture.frac * params['h_total'], alleles, params,
+        rng=np.random.RandomState(params['random_seed']))
+
+
+def resample_tumour_data(read_data_filename, source_filename, mixture_filename,
+                         germline_alleles_filename, params):
+    """The source seqdata resampled to the mixture's depths."""
+    mixture, alleles = _read_sim_inputs(
+        mixture_filename, germline_alleles_filename)
+    seqread.resample_mixture_read_data(
+        read_data_filename, source_filename,
+        mixture.genome_collection.genomes,
+        mixture.frac * params['h_total'], alleles, params,
+        rng=np.random.RandomState(params['random_seed']))
 
 
 def tabulate_experiment(exp_table_filename, sim_id, experiment_filename):

@@ -6,21 +6,35 @@
         --tumour_sample_ids t --tumour_bam_files t.bam \\
         --results_files results.h5 \\
         [--normal_sample_id n --normal_bam_file n.bam] [--config c.yaml]
+    python3 -m remixt_tpu_torch.ui.main write_results results.h5 cn.tsv \\
+        brk_cn.tsv meta.yaml [--max_ploidy P] [--min_ploidy P] \\
+        [--max_proportion_divergent D]
+    python3 -m remixt_tpu_torch.ui.main visualize_solutions results.h5 \\
+        report.html
 
-Registers the ``fit`` and ``run`` subcommands.
+Registers the ``fit``, ``run``, ``write_results`` and
+``visualize_solutions`` subcommands.
 """
 
 import argparse
 
 import remixt_tpu_torch.ui.fit
 import remixt_tpu_torch.ui.run
+import remixt_tpu_torch.ui.visualize_solutions
+import remixt_tpu_torch.ui.write_results
+
+MODULES = {
+    'fit': remixt_tpu_torch.ui.fit,
+    'run': remixt_tpu_torch.ui.run,
+    'write_results': remixt_tpu_torch.ui.write_results,
+    'visualize_solutions': remixt_tpu_torch.ui.visualize_solutions,
+}
 
 
 def main(argv=None):
     argparser = argparse.ArgumentParser(prog='remixt-tpu-torch')
     subparsers = argparser.add_subparsers(required=True)
-    for name, module in (('fit', remixt_tpu_torch.ui.fit),
-                         ('run', remixt_tpu_torch.ui.run)):
+    for name, module in MODULES.items():
         module.add_arguments(subparsers.add_parser(name))
     args = vars(argparser.parse_args(argv))
     func = args.pop('func')

@@ -1,8 +1,8 @@
 """Host-side utilities (numpy): weighted sampling, FASTA/FAI io, table
 sharding and merging, file plumbing.
 
-Counterpart of ``weighted_resample``, ``reverse_complement``,
-``read_sequences``, ``read_chromosome_lengths``,
+Counterpart of ``weighted_resample``, ``weighted_percentile``,
+``reverse_complement``, ``read_sequences``, ``read_chromosome_lengths``,
 ``sort_chromosome_names``, ``merge_files``, ``split_table``,
 ``merge_tables`` and ``link_file`` of ``remixt_tpu/utils/__init__.py``;
 the table functions work on the text, without pandas.
@@ -26,6 +26,13 @@ def weighted_resample(data, weights, num_samples=10000, seed=1234):
     p = np.asarray(weights, dtype=float)
     counts = np.random.RandomState(seed).multinomial(num_samples, p / p.sum())
     return np.repeat(data, counts)
+
+
+def weighted_percentile(data, weights, percentile, num_samples=10000):
+    """Percentile of a weighted-resampled dataset."""
+    return np.percentile(
+        weighted_resample(data, weights, num_samples=num_samples),
+        percentile)
 
 
 _DNA_COMPLEMENT = str.maketrans('ACTGactg', 'TGACtgac')

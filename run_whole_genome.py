@@ -1,19 +1,31 @@
 #!/usr/bin/env python3
-"""Where a user's time goes before and in the fit: the ``run`` CLI of the
-PyTorch/CUDA port on a whole synthetic genome, on one GPU.
+"""Where a user's time goes before and in the fit, on a whole synthetic
+genome, on one GPU: the ``run`` CLI of the PyTorch/CUDA port from BAMs, or
+with ``--read-benchmark`` the read-level simulation benchmark.
 
     python3 run_whole_genome.py [--tumour-depth 1.0] [--normal-depth 0.5]
         [--chromosomes 1,2,...] [--out FILE]
+    python3 run_whole_genome.py --read-benchmark [--h-total 0.005]
+        [--segments 5000] [--chromosomes 1,2,...] [--out FILE]
 
-Makes ``chip_smoke.py`` phase 11's inputs from its seeds on the chosen
-GRCh37 autosomes (all 22 by default, 2.88 Gb): a synthetic reference, the
-accuracy benchmark's tumour mixture scaled to the genome, a tumour and a
-normal BAM at the given depths (bases of read per base of genome); runs
-the ``run`` CLI on them with the stand-in phasing tools, the default
-config and the fit on the card; checks finite ELBOs and one ``fb_grouped``
-launch per sweep of every wave; and prints the wall time of every step,
-the peak device memory and the peak host resident set beside the card's
-name and power limit, as a JSON line last (also written to ``--out``).
+The ``run`` CLI: makes ``chip_smoke.py`` phase 11's inputs from its seeds
+on the chosen GRCh37 autosomes (all 22 by default, 2.88 Gb): a synthetic
+reference, the accuracy benchmark's tumour mixture scaled to the genome, a
+tumour and a normal BAM at the given depths (bases of read per base of
+genome); runs the CLI on them with the stand-in phasing tools, the default
+config and the fit on the card.
+
+The read benchmark: makes phase 12's inputs (the same reference, an
+impute2 panel at its SNPs, ``benchmark/sim_defs.yaml``'s simulation at
+``--h-total`` with ``--segments`` segments) and runs
+``remixt_tpu_torch.benchmark.run_read_benchmark`` on them: simulated
+germline alleles and reads, the run from seqdata, the fit on the card and
+the evaluation against the truth.
+
+Either checks finite ELBOs and one ``fb_grouped`` launch per sweep of
+every wave, and prints the wall time of every step, the peak device memory
+and the peak host resident set beside the card's name and power limit, as
+a JSON line last (also written to ``--out``).
 """
 
 import argparse
@@ -32,6 +44,9 @@ def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument('--tumour-depth', type=float, default=1.0)
     parser.add_argument('--normal-depth', type=float, default=0.5)
+    parser.add_argument('--read-benchmark', action='store_true')
+    parser.add_argument('--h-total', type=float, default=0.005)
+    parser.add_argument('--segments', type=int, default=5000)
     parser.add_argument('--chromosomes', default=','.join(cs.AUTOSOMES))
     parser.add_argument('--out', default=None)
     args = parser.parse_args(argv)
@@ -51,17 +66,31 @@ def main(argv=None):
     cs.log('card: ' + smi)
 
     chromosomes = {c: cs.AUTOSOMES[c] for c in args.chromosomes.split(',')}
-    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'build',
-                        'whole_genome')
+    here = os.path.dirname(os.path.abspath(__file__))
     reset = cs.host_peak_reset()
     t0 = time.time()
-    run = cs.run_cli('whole genome', root, chromosomes,
-                     {'tumour': args.tumour_depth,
-                      'normal': args.normal_depth})
+    if args.read_benchmark:
+        run = cs.read_benchmark(
+            'whole genome read benchmark',
+            os.path.join(here, 'build', 'whole_genome_reads'), chromosomes,
+            args.h_total, N=args.segments)
+        counts = run['counts']
+        inputs = dict(h_total=args.h_total, simulated_segments=args.segments,
+                      inputs_s=run['fixture']['times'])
+    else:
+        run = cs.run_cli('whole genome',
+                         os.path.join(here, 'build', 'whole_genome'),
+                         chromosomes, {'tumour': args.tumour_depth,
+                                       'normal': args.normal_depth})
+        counts = os.path.join(run['raw'], 'counts', 'sample_tumour.tsv')
+        inputs = dict(depths=dict(tumour=args.tumour_depth,
+                                  normal=args.normal_depth),
+                      pairs=run['fixture']['pairs'],
+                      inputs_s=run['fixture']['times'])
     device_gb = torch.cuda.max_memory_allocated() / 1e9
     cs.log_run_steps('whole genome', run)
 
-    stats = read_store(run['results'])['stats']
+    stats = read_store(run['results'], keys=['stats'])['stats']
     if not np.all(np.isfinite(stats['elbo'])):
         raise AssertionError('non-finite ELBO')
     sweeps = (config_mod.get_param({}, 'num_em_iter')
@@ -69,20 +98,23 @@ def main(argv=None):
     expected = -(-len(stats['elbo']) // cs.WAVE) * sweeps
     cs.expect_launches('whole genome', run['launches'], 'fb_grouped',
                        expected)
-    with open(os.path.join(run['raw'], 'counts', 'sample_tumour.tsv')) as f:
+    with open(counts) as f:
         segments = sum(1 for _ in f) - 1
     summary = dict(
         card=smi, chromosomes=list(chromosomes),
-        genome_mb=sum(chromosomes.values()) / 1e6,
-        depths=dict(tumour=args.tumour_depth, normal=args.normal_depth),
-        pairs=run['fixture']['pairs'], inputs_s=run['fixture']['times'],
+        genome_mb=sum(chromosomes.values()) / 1e6, **inputs,
         steps_s={k: sum(v) for k, v in run['times'].items()},
         extract_s=run['times'].get('extract'), waves_s=run['waves'],
         segments=segments, restarts=len(stats['elbo']),
-        fb_grouped_launches=expected, run_cli_s=run['whole'],
+        fb_grouped_launches=expected, run_s=run['whole'],
         total_s=time.time() - t0, device_peak_gb=device_gb,
         host_peak_gb=cs.host_peak_gb(),
         host_peak_since='start of the run' if reset else 'process start')
+    if args.read_benchmark:
+        summary.update(
+            seqdata={sample: cs.seqdata_digest(path)
+                     for sample, path in run['seqdata'].items()},
+            evaluation=cs.evaluation_metrics(read_store(run['evaluation'])))
     line = json.dumps(summary)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),

@@ -129,6 +129,36 @@ def test_create_experiment_matches(experiments, cut):
     assert_table_equal(got.count_table, ref.count_data, 'count_table')
 
 
+@pytest.mark.parametrize('cut', ['all segments', 'min_length'])
+def test_breakpoints_iterate_as_jax_after_pickling(experiments, cut):
+    """Read back from their pickles, both experiments give each
+    breakpoint's breakends in the same order, which sets the slot order of
+    a junction's breakends in the model."""
+    ref, got = experiments['by_cut'][cut]
+    assert list(got.breakpoints) == list(ref.breakpoints)
+    assert [list(b) for b in got.breakpoints.values()] == \
+        [list(b) for b in ref.breakpoints.values()]
+
+
+def test_colliding_breakends_keep_their_order_through_pickles():
+    """Two breakends in one hash slot swap their iteration order at every
+    pickle round trip of a stored frozenset; the experiment builds its
+    breakpoints anew from the segment table, in the JAX package's order."""
+    table = {'prediction_id': np.array([16]), 'n_1': np.array([532]),
+             'side_1': np.array([1]), 'n_2': np.array([410]),
+             'side_2': np.array([1])}
+    ref = jax_experiment.convert_breakpoints_to_dict(pd.DataFrame(table))
+    stored = pickle.loads(pickle.dumps(ref))
+    assert list(stored[16]) != list(ref[16])
+    experiment = Experiment(np.zeros((600, 3)), np.ones(600), set(),
+                            torch_experiment.convert_breakpoints_to_dict(
+                                Table(table)))
+    experiment.breakpoint_segment_data = Table(table)
+    for _ in range(2):
+        experiment = pickle.loads(pickle.dumps(experiment))
+        assert list(experiment.breakpoints[16]) == list(ref[16])
+
+
 def test_odd_breakpoints(experiments):
     """Of the added predictions only the one within max_brk_dist stays; the
     truth's breakpoints all map."""

@@ -17,9 +17,9 @@ makes ``chip_smoke.py`` phase 11's inputs (the three chromosomes of
 ``RUN_CHROMOSOMES`` at their full length), runs the JAX package's whole
 ``create_remixt_bam_workflow`` on them (its fit at the defaults, on the
 CPU) and the port's up to the count table, checks that the two count
-tables are equal, and prints the digests of the count table and the JAX
-package's evaluation of its fit against the truth: the constants
-``RUN_JAX`` of ``chip_smoke.py``.
+tables are equal, and prints the digests of the count table, the restart
+the JAX fit chose and the JAX package's evaluation of it against the
+truth: the constants ``RUN_JAX`` of ``chip_smoke.py``.
 """
 
 import importlib.util
@@ -347,12 +347,16 @@ def phase11_reference(workdir):
         evaluation = jax_sim.evaluate_results(
             mixture, store['/cn'], store['/brk_cn'], store['/mix'].values)
         restarts = len(store['/stats'])
+    from remixt_tpu_torch.analysis.pipeline import optimal_init_id
+    from remixt_tpu_torch.io.store import read_store
+    chosen = int(optimal_init_id(read_store(results, keys=['stats'])['stats'],
+                                 {}))
     metrics = {}
     for name in ('cn_evaluation', 'brk_cn_evaluation', 'mix_results'):
         metrics.update({k: float(v) for k, v in evaluation[name].items()})
     print('RUN_JAX = ' + repr(dict(
         counts=digest, restarts=restarts, segments=digest['rows'],
-        evaluation=metrics)))
+        chosen=chosen, evaluation=metrics)))
 
 
 if __name__ == '__main__':

@@ -221,8 +221,16 @@ def test_create_simulations_needs_chromosome_lengths(tmp_path):
                     'random_seed_start: 1}\n')
     with pytest.raises(ValueError, match='chromosome_lengths'):
         torch_pipeline.create_simulations(str(path), {}, None)
-    with pytest.raises(NotImplementedError, match='reference data'):
-        torch_pipeline.create_simulations(str(path), {}, str(tmp_path))
+    # with reference data the lengths come from its FASTA index (chromosomes
+    # 1 to 22 by default), as in the JAX package
+    (tmp_path / 'Homo_sapiens.GRCh38.93.dna.chromosomes.fa.fai').write_text(
+        ''.join('{}\t{}\t0\t60\t61\n'.format(c, 1000000 + k)
+                for k, c in enumerate([str(c) for c in range(1, 23)] + ['X'])))
+    got = torch_pipeline.create_simulations(str(path), {}, str(tmp_path))
+    assert got == jax_pipeline.create_simulations(str(path), {},
+                                                  str(tmp_path))
+    assert list(got['a_0_0']['chromosome_lengths']) == [
+        str(c) for c in range(1, 23)]
 
 
 def test_read_sim_defs_matches_jax(tmp_path):
