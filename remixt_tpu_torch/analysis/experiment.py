@@ -199,7 +199,8 @@ class Experiment:
         x: (N, 3) major, minor and total read counts per segment
         l: (N,) segment lengths
         adjacencies: set of (n, n+1) wild-type adjacent segment pairs
-        breakpoints: {breakpoint id: frozenset of two (segment, side)}
+        breakpoints: {breakpoint id: frozenset of two (segment, side)};
+            None for an experiment made by :meth:`from_tables`
         segment_chromosome_id: (N,) chromosome name per segment
     """
 
@@ -212,7 +213,7 @@ class Experiment:
         if self.l.shape != (self.x.shape[0],):
             raise ValueError('l must be (N,)')
         self.adjacencies = set(adjacencies)
-        self._breakpoints = dict(breakpoints)
+        self._breakpoints = None if breakpoints is None else dict(breakpoints)
         if segment_chromosome_id is None:
             segment_chromosome_id = np.full(self.x.shape[0], '1')
         self.segment_chromosome_id = np.asarray(segment_chromosome_id)
@@ -255,8 +256,7 @@ class Experiment:
 
         x = np.stack([count_table[c] for c in (
             'major_readcount', 'minor_readcount', 'readcount')], axis=1)
-        experiment = cls(x, count_table['length'], adjacencies,
-                         convert_breakpoints_to_dict(breakpoint_segment_data),
+        experiment = cls(x, count_table['length'], adjacencies, None,
                          count_table['chromosome'])
         experiment.segment_start = count_table['start']
         experiment.segment_end = count_table['end']
@@ -276,7 +276,7 @@ class Experiment:
         breakends and so the model, changes with each pickle round trip
         where its two breakends share a hash slot; a fresh one has the JAX
         package's order."""
-        if self.breakpoint_segment_data is not None:
+        if self._breakpoints is None:
             return convert_breakpoints_to_dict(self.breakpoint_segment_data)
         return self._breakpoints
 

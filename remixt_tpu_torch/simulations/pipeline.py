@@ -197,26 +197,40 @@ def sample_genome_mixture(params, rng=None):
         collection_sampler.sample_genome_collection(rng), rng)
 
 
-def sample_experiment(params):
-    """A count-level experiment drawn from
+def sample_experiment(params, rng=None):
+    """A count-level experiment drawn from ``rng``, by default
     ``RandomState(params['random_seed'])``: the JAX package's
     ``simulate_experiment`` draws the same one from numpy's global
     generator seeded alike."""
-    rng = np.random.RandomState(params['random_seed'])
+    if rng is None:
+        rng = np.random.RandomState(params['random_seed'])
     mixture = sample_genome_mixture(params, rng)
     return sim_genome.ExperimentSampler(params).sample_experiment(mixture, rng)
+
+
+def task_rng(params):
+    """The generator a simulation task draws from: numpy's global one,
+    seeded with the simulation's ``random_seed`` as the JAX package's task
+    seeds it. The task leaves the global state where the JAX task leaves
+    it, so a later draw from that state in the same process
+    (``analysis.gcbias.sample_gc`` in the run that follows) draws what
+    the JAX package's draws."""
+    np.random.seed(params['random_seed'])
+    return np.random.mtrand._rand
 
 
 def simulate_genome_mixture(mixture_filename, mixture_plot_filename, params):
     """Sample a genome collection + mixture and pickle it."""
     _no_plot(mixture_plot_filename)
-    _dump_pickle(sample_genome_mixture(params), mixture_filename)
+    _dump_pickle(sample_genome_mixture(params, task_rng(params)),
+                 mixture_filename)
 
 
 def simulate_experiment(experiment_filename, experiment_plot_filename, params):
     """Sample a full count-level experiment and pickle it."""
     _no_plot(experiment_plot_filename)
-    _dump_pickle(sample_experiment(params), experiment_filename)
+    _dump_pickle(sample_experiment(params, task_rng(params)),
+                 experiment_filename)
 
 
 # the germline allele table's columns, in the order create_sim_alleles
@@ -286,10 +300,9 @@ class _GermlineAllelesAccessor:
 def simulate_germline_alleles(germline_alleles_filename, params, config,
                               ref_data_dir):
     """Germline haplotypes of every chromosome of ``params`` from the
-    impute2 panel, drawn from ``RandomState(params['random_seed'])`` (the
-    JAX task draws the same from numpy's global generator seeded alike),
-    written as a germline allele store."""
-    rng = np.random.RandomState(params['random_seed'])
+    impute2 panel, drawn from ``task_rng(params)``, written as a germline
+    allele store."""
+    rng = task_rng(params)
     write_germline_alleles(germline_alleles_filename, {
         chromosome: sim_haplotype.create_sim_alleles(
             chromosome, config, ref_data_dir, rng=rng)
@@ -309,7 +322,7 @@ def simulate_normal_data(read_data_filename, mixture_filename,
     seqread.simulate_mixture_read_data(
         read_data_filename, [mixture.genome_collection.genomes[0]],
         [params['h_total']], alleles, params,
-        rng=np.random.RandomState(params['random_seed']))
+        rng=task_rng(params))
 
 
 def resample_normal_data(read_data_filename, source_filename, mixture_filename,
@@ -321,7 +334,7 @@ def resample_normal_data(read_data_filename, source_filename, mixture_filename,
         read_data_filename, source_filename,
         [mixture.genome_collection.genomes[0]],
         [params['h_total']], alleles, params,
-        rng=np.random.RandomState(params['random_seed']))
+        rng=task_rng(params))
 
 
 def simulate_tumour_data(read_data_filename, mixture_filename,
@@ -332,7 +345,7 @@ def simulate_tumour_data(read_data_filename, mixture_filename,
     seqread.simulate_mixture_read_data(
         read_data_filename, mixture.genome_collection.genomes,
         mixture.frac * params['h_total'], alleles, params,
-        rng=np.random.RandomState(params['random_seed']))
+        rng=task_rng(params))
 
 
 def resample_tumour_data(read_data_filename, source_filename, mixture_filename,
@@ -344,7 +357,7 @@ def resample_tumour_data(read_data_filename, source_filename, mixture_filename,
         read_data_filename, source_filename,
         mixture.genome_collection.genomes,
         mixture.frac * params['h_total'], alleles, params,
-        rng=np.random.RandomState(params['random_seed']))
+        rng=task_rng(params))
 
 
 def tabulate_experiment(exp_table_filename, sim_id, experiment_filename):

@@ -142,17 +142,17 @@ def test_breakpoints_iterate_as_jax_after_pickling(experiments, cut):
 
 def test_colliding_breakends_keep_their_order_through_pickles():
     """Two breakends in one hash slot swap their iteration order at every
-    pickle round trip of a stored frozenset; the experiment builds its
-    breakpoints anew from the segment table, in the JAX package's order."""
+    pickle round trip of a stored frozenset; an experiment made from
+    tables builds its breakpoints anew from the segment table, in the JAX
+    package's order."""
     table = {'prediction_id': np.array([16]), 'n_1': np.array([532]),
              'side_1': np.array([1]), 'n_2': np.array([410]),
              'side_2': np.array([1])}
     ref = jax_experiment.convert_breakpoints_to_dict(pd.DataFrame(table))
     stored = pickle.loads(pickle.dumps(ref))
     assert list(stored[16]) != list(ref[16])
-    experiment = Experiment(np.zeros((600, 3)), np.ones(600), set(),
-                            torch_experiment.convert_breakpoints_to_dict(
-                                Table(table)))
+    # as Experiment.from_tables makes it: no stored dict, the table
+    experiment = Experiment(np.zeros((600, 3)), np.ones(600), set(), None)
     experiment.breakpoint_segment_data = Table(table)
     for _ in range(2):
         experiment = pickle.loads(pickle.dumps(experiment))

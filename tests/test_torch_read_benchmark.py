@@ -18,7 +18,11 @@ benchmark on them (``benchmark/run_read_benchmark.py``, its fit at the
 defaults, on the CPU) and the port's up to the count table, checks that
 the two packages' seqdata and count tables are equal, and prints the
 constants ``READ_JAX`` of ``chip_smoke.py`` (with the restart the JAX fit
-chose).
+chose, every restart's ELBO, and the JAX package's refits of the restarts
+near the chosen one: ``test_torch_run.jax_fit_choice`` and
+``jax_near_references``). Nothing is seeded between the tasks of either
+run. With ``--near`` it makes only the refits, from a WORKDIR where such
+a run has finished.
 """
 
 import importlib.util
@@ -374,6 +378,133 @@ def test_read_benchmark_end_to_end(fixture, tmp_path):
     assert not os.path.exists(str(tmp_path / 'raw2'))
 
 
+def to_the_counts(tasks):
+    """A workflow's tasks without the fit, the evaluation and the merge."""
+    return [t for t in tasks if '/fit_model_' not in t.name
+            and not t.name.startswith(('evaluate_', 'merge_'))]
+
+
+def test_runners_give_the_jax_count_table(fixture, tmp_path):
+    """Both packages' read benchmark runners on the fixture up to the count
+    table, with nothing seeded between their tasks: the port's simulation
+    tasks leave numpy's global state where the JAX tasks leave it, so the
+    GC sample the run draws from it (``sample_gc``), and with it the count
+    table, is the JAX package's."""
+    import remixt_tpu.simulations.pipeline as jax_sim
+    import remixt_tpu_torch.simulations.pipeline as torch_sim
+    from remixt_tpu_torch.benchmark import run_read_benchmark
+
+    cs = chip_smoke()
+    runner = load_module('jax_run_read_benchmark', os.path.join(
+        REPO, 'benchmark', 'run_read_benchmark.py'))
+
+    class JaxToTheCounts(runner.Workflow):
+        def run(self, workdir, **kwargs):
+            self.tasks = to_the_counts(self.tasks)
+            return super().run(workdir, **kwargs)
+
+    config_file = tmp_path / 'jax_config.yaml'
+    config_file.write_text(json.dumps(jax_config(fixture)))
+    raw = {name: str(tmp_path / name) for name in ('jax', 'torch')}
+    saved = [(sim, sim.simulate_germline_alleles)
+             for sim in (jax_sim, torch_sim)]
+    argv = sys.argv
+    try:
+        for sim, simulate in saved:
+            sim.simulate_germline_alleles = cs.with_germline_truth(
+                simulate, fixture['ref_data_dir'])
+        runner.Workflow = JaxToTheCounts
+        with cs.first_on_path(cs.write_standin_tools(str(tmp_path / 'bin'))):
+            sim_defs = torch_sim.create_simulations(
+                fixture['sim_defs'], fixture['config'],
+                fixture['ref_data_dir'])
+            flow = run_read_benchmark.create_workflow(
+                sim_defs, raw['torch'], str(tmp_path / 'ev'),
+                fixture['config'], fixture['ref_data_dir'], device='cpu')
+            flow.tasks = to_the_counts(flow.tasks)
+            np.random.seed(1)
+            flow.run(os.path.join(raw['torch'], 'work'))
+            sys.argv = ['run_read_benchmark.py', fixture['ref_data_dir'],
+                        fixture['sim_defs'], raw['jax'],
+                        str(tmp_path / 'jax_ev.h5'), '--config',
+                        str(config_file)]
+            np.random.seed(2)
+            runner.main()
+    finally:
+        sys.argv = argv
+        for sim, simulate in saved:
+            sim.simulate_germline_alleles = simulate
+
+    counts = os.path.join(raw['jax'], cs.READ_SIM_ID, 'remixt', 'counts',
+                          'sample_tumour.tsv')
+    assert cs.count_table_digest(cs.read_benchmark_paths(raw['torch'])[
+        'counts']) == cs.count_table_digest(counts)
+
+
+CHOICE_REFERENCE = dict(
+    chosen=2, elbo={2: -10.0, 10: -12.0},
+    proportion_divergent={2: 0.4, 10: 0.45},
+    evaluation={'mix_pred_2': 0.19},
+    float64=dict(chosen=2, elbo={2: -9.0, 10: -9.5},
+                 proportion_divergent={2: 0.4, 10: 0.45},
+                 evaluation={'mix_pred_2': 0.19}),
+    perturbed=dict(chosen={1: 2, 2: 10, 3: 10},
+                   elbo={1: {2: -10.0, 10: -12.0}, 2: {2: -10.0, 10: -9.0},
+                         3: {2: -10.0, 10: -9.5}},
+                   proportion_divergent={k: {2: 0.4, 10: 0.45}
+                                         for k in (1, 2, 3)},
+                   evaluation={1: {'mix_pred_2': 0.23},
+                               2: {'mix_pred_2': 0.06},
+                               3: {'mix_pred_2': 0.09}}))
+
+
+@pytest.mark.parametrize('own, solutions, reference, passes', [
+    (2, {2: 0.2}, CHOICE_REFERENCE, True),
+    (2, {2: 0.24}, CHOICE_REFERENCE, True),
+    (2, {2: 0.26}, CHOICE_REFERENCE, False),
+    (10, {2: 0.2, 10: 0.05}, CHOICE_REFERENCE, True),
+    (10, {2: 0.2, 10: 0.1}, CHOICE_REFERENCE, True),
+    (10, {2: 0.26, 10: 0.05}, CHOICE_REFERENCE, False),
+    (10, {2: 0.2, 10: 0.12}, CHOICE_REFERENCE, False),
+    (10, {2: 0.2, 10: 0.05}, dict(CHOICE_REFERENCE, perturbed=dict(
+        CHOICE_REFERENCE['perturbed'], chosen={1: 2, 2: 2, 3: 2})), False),
+    (10, {2: 0.2, 10: 0.05}, {k: v for k, v in CHOICE_REFERENCE.items()
+                              if k != 'perturbed'}, False),
+], ids=['same choice', 'same choice within a refit\'s bars',
+        'same choice outside every bar', 'a refit\'s choice',
+        'a refit\'s choice within another refit\'s bars',
+        'JAX choice outside every bar', 'refit choice outside every bar',
+        'no JAX fit chose it', 'no perturbed refits'])
+def test_check_chosen_restart(monkeypatch, own, solutions, reference,
+                              passes):
+    """chip_smoke's gate on a fit's chosen solution: within the bars
+    (mix_pred_2's 0.02) of some JAX float32 fit that chose the same
+    restart, the JAX fit or a refit from inputs moved by one ulp; where
+    the choices differ, this fit's solution of the JAX choice too."""
+    from types import SimpleNamespace
+    import remixt_tpu_torch.analysis.pipeline as torch_pipeline
+    import remixt_tpu_torch.simulations.pipeline as torch_sim
+
+    def evaluate_tables(mixture, tables, key_prefix=''):
+        init_id = (own if not key_prefix
+                   else int(key_prefix.rsplit('_', 1)[1]))
+        value = solutions[init_id]
+        return {'mix_results': SimpleNamespace(
+            to_dict=lambda: {'mix_pred_2': value})}
+
+    monkeypatch.setattr(torch_sim, 'evaluate_tables', evaluate_tables)
+    monkeypatch.setattr(torch_pipeline, 'optimal_init_id',
+                        lambda stats, config: own)
+    stats = {'init_id': np.array([2, 10]), 'elbo': np.array([-11.0, -10.5]),
+             'proportion_divergent': np.array([0.4, 0.45])}
+    check = chip_smoke().check_chosen_restart
+    if passes:
+        check('test', None, {'stats': stats}, reference)
+    else:
+        with pytest.raises((AssertionError, KeyError)):
+            check('test', None, {'stats': stats}, reference)
+
+
 def test_resample_runner_without_cuda_raises(fixture, tmp_path,
                                              monkeypatch):
     """No device asked for and no CUDA: the resample runner raises before
@@ -397,10 +528,8 @@ def test_resample_runner_without_cuda_raises(fixture, tmp_path,
 def phase12_reference(workdir):
     """Run the JAX package's read benchmark on phase 12's inputs and the
     port's up to the count table; print the constants of ``READ_JAX``."""
-    import remixt_tpu.analysis.gcbias as jax_gcbias
     import remixt_tpu.simulations.pipeline as jax_sim
     from remixt_tpu.io.hdf5 import HDFStore
-    import remixt_tpu_torch.analysis.gcbias as torch_gcbias
     import remixt_tpu_torch.simulations.pipeline as torch_sim
     from remixt_tpu_torch.benchmark import run_read_benchmark
 
@@ -422,15 +551,11 @@ def phase12_reference(workdir):
         shutil.rmtree(path, ignore_errors=True)
     runner = load_module('jax_run_read_benchmark', os.path.join(
         REPO, 'benchmark', 'run_read_benchmark.py'))
-    originals = [(jax_sim, 'simulate_germline_alleles'),
-                 (jax_gcbias, 'sample_gc'),
-                 (torch_sim, 'simulate_germline_alleles'),
-                 (torch_gcbias, 'sample_gc')]
-    saved = [(m, n, getattr(m, n)) for m, n in originals]
-    for sim, gcbias in ((jax_sim, jax_gcbias), (torch_sim, torch_gcbias)):
+    saved = [(sim, sim.simulate_germline_alleles)
+             for sim in (jax_sim, torch_sim)]
+    for sim, simulate in saved:
         sim.simulate_germline_alleles = cs.with_germline_truth(
-            sim.simulate_germline_alleles, fixture['ref_data_dir'])
-        gcbias.sample_gc = cs.seeded(gcbias.sample_gc, cs.RUN_NUMPY_SEED)
+            simulate, fixture['ref_data_dir'])
     argv = sys.argv
     try:
         with cs.first_on_path(bin_dir):
@@ -458,8 +583,8 @@ def phase12_reference(workdir):
                   flush=True)
     finally:
         sys.argv = argv
-        for module, name, fn in saved:
-            setattr(module, name, fn)
+        for sim, simulate in saved:
+            sim.simulate_germline_alleles = simulate
 
     sim_dir = os.path.join(raw['jax'], cs.READ_SIM_ID)
     port = cs.read_benchmark_paths(raw['torch'])
@@ -479,19 +604,37 @@ def phase12_reference(workdir):
         metrics = {}
         for name in ('cn_evaluation', 'brk_cn_evaluation', 'mix_results'):
             metrics.update({k: float(v) for k, v in store[name].items()})
-    from remixt_tpu_torch.analysis.pipeline import optimal_init_id
-    from remixt_tpu_torch.io.store import read_store
-    stats = read_store(os.path.join(sim_dir, 'results_remixt.h5'),
-                       keys=['stats'])['stats']
     print('READ_JAX = ' + repr(dict(
-        seqdata=seqdata, counts=counts, restarts=len(stats),
-        segments=counts['rows'], chosen=int(optimal_init_id(stats, {})),
-        evaluation=metrics)))
+        seqdata=seqdata, counts=counts, segments=counts['rows'],
+        evaluation=metrics, **reference_run().jax_fit_choice(
+            os.path.join(sim_dir, 'results_remixt.h5')),
+        **phase12_near(workdir))))
+
+
+def reference_run():
+    return load_module('test_torch_run', os.path.join(
+        REPO, 'tests', 'test_torch_run.py'))
+
+
+def phase12_near(workdir):
+    """``test_torch_run.jax_near_references`` on the JAX benchmark of a
+    finished ``--phase12`` WORKDIR."""
+    sim_dir = os.path.join(workdir, 'jax', chip_smoke().READ_SIM_ID)
+    with open(os.path.join(sim_dir, 'mixture.pickle'), 'rb') as f:
+        mixture = pickle.load(f)
+    return reference_run().jax_near_references(
+        os.path.join(sim_dir, 'remixt', 'experiment', 'sample_tumour.pickle'),
+        os.path.join(sim_dir, 'results_remixt.h5'), mixture,
+        os.path.join(workdir, 'near'))
 
 
 if __name__ == '__main__':
-    if len(sys.argv) != 3 or sys.argv[1] != '--phase12':
+    if sys.argv[1:2] != ['--phase12'] or len(sys.argv) not in (3, 4) or \
+            sys.argv[3:] not in ([], ['--near']):
         sys.exit('usage: python tests/test_torch_read_benchmark.py '
-                 '--phase12 WORKDIR')
+                 '--phase12 WORKDIR [--near]')
     sys.path.insert(0, REPO)
-    phase12_reference(sys.argv[2])
+    if sys.argv[3:]:
+        print('READ_JAX.update(' + repr(phase12_near(sys.argv[2])) + ')')
+    else:
+        phase12_reference(sys.argv[2])

@@ -18,8 +18,13 @@ makes ``chip_smoke.py`` phase 11's inputs (the three chromosomes of
 ``create_remixt_bam_workflow`` on them (its fit at the defaults, on the
 CPU) and the port's up to the count table, checks that the two count
 tables are equal, and prints the digests of the count table, the restart
-the JAX fit chose and the JAX package's evaluation of it against the
-truth: the constants ``RUN_JAX`` of ``chip_smoke.py``.
+the JAX fit chose (by the JAX package's own selection, ``jax_fit_choice``),
+every restart's ELBO and proportion divergent, the JAX package's
+evaluation of the chosen solution against the truth, and the JAX
+package's refits of the restarts near the chosen one, in float64 and in
+float32 from inputs moved by one float32 ulp (``jax_near_references``):
+the constants ``RUN_JAX`` of ``chip_smoke.py``. With ``--near`` it makes
+only the refits, from a WORKDIR where such a run has finished.
 """
 
 import importlib.util
@@ -285,12 +290,159 @@ def test_more_than_one_tumour_raises(runs, tmp_path):
 # phase 11's reference numbers
 # ---------------------------------------------------------------------------
 
+def jax_fit_choice(results):
+    """The JAX package's own choice on its results store ``results``: the
+    restart its ``store_optimal_solution`` aliases at the top of the store,
+    checked against the store's top-level ``/mix``, and each restart's ELBO
+    and proportion divergent, {init_id: value}."""
+    from remixt_tpu.analysis.pipeline import store_optimal_solution
+    from remixt_tpu.io.hdf5 import HDFStore
+
+    class Reads(dict):
+        def __missing__(self, key):
+            self.setdefault('read', []).append(key)
+
+    with HDFStore(results, 'r') as store:
+        stats = store['/stats'].sort_values('init_id')
+        reads = Reads()
+        store_optimal_solution(store['/stats'], reads, {})
+        chosen = {int(key.split('/')[2][len('solution_'):])
+                  for key in reads['read']}
+        assert len(chosen) == 1, reads['read']
+        chosen = chosen.pop()
+        np.testing.assert_array_equal(
+            store['/mix'].values,
+            store['/solutions/solution_{}/mix'.format(chosen)].values)
+    ids = [int(i) for i in stats['init_id']]
+    return dict(restarts=len(stats), chosen=chosen, **{
+        name: dict(zip(ids, (float(v) for v in stats[name])))
+        for name in ('elbo', 'proportion_divergent')})
+
+
+def jax_evaluation(mixture, results):
+    """The JAX package's evaluation against the truth ``mixture`` of the
+    solution at the top of its results store ``results``, flat."""
+    import remixt_tpu.simulations.pipeline as jax_sim
+    from remixt_tpu.io.hdf5 import HDFStore
+    with HDFStore(results, 'r') as store:
+        evaluation = jax_sim.evaluate_results(
+            mixture, store['/cn'], store['/brk_cn'], store['/mix'].values)
+    metrics = {}
+    for name in ('cn_evaluation', 'brk_cn_evaluation', 'mix_results'):
+        metrics.update({k: float(v) for k, v in evaluation[name].items()})
+    return metrics
+
+
+#: the restarts whose float32 ELBO in the JAX fit lies within this of the
+#: chosen restart's are refitted (one restart's float32 ELBO spans 6.7
+#: across the two packages' fits on the CPU and the card: phase 11's
+#: restart 10)
+NEAR_MARGIN = 10.0
+#: the JAX package's float32 refits of those restarts with the segment
+#: lengths moved by one float32 ulp, one per seed 1..PERTURBED_FITS
+PERTURBED_FITS = 8
+
+
+def near_restarts(float32):
+    """The restarts of a ``jax_fit_choice`` within ``NEAR_MARGIN`` of the
+    chosen one's ELBO."""
+    floor = float32['elbo'][float32['chosen']] - NEAR_MARGIN
+    return sorted(i for i, elbo in float32['elbo'].items() if elbo >= floor)
+
+
+def jax_refit(experiment, grid, ids, config, mixture, workdir):
+    """The JAX package's fit of restarts ``ids`` of ``grid`` on
+    ``experiment`` at ``config``, collated by the JAX package into a store
+    in ``workdir``: the restart it chooses among them, their ELBOs and
+    proportions divergent, and the evaluation against the truth
+    ``mixture`` of the chosen solution."""
+    import remixt_tpu.analysis.pipeline as jax_pipeline
+
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    experiment_file = os.path.join(workdir, 'experiment.pickle')
+    with open(experiment_file, 'wb') as f:
+        pickle.dump(experiment, f)
+    init_file = os.path.join(workdir, 'init.h5')
+    jax_pipeline.init(init_file, experiment_file, {})
+    t0 = time.time()
+    fits = jax_pipeline.fit_many(experiment, {i: grid[i] for i in ids},
+                                 config)
+    print('jax fit of restarts {} at {} in {}'.format(ids, config, workdir),
+          round(time.time() - t0, 1), flush=True)
+    fit_files = {}
+    for init_id, fit in fits.items():
+        fit_files[init_id] = os.path.join(workdir,
+                                          'fit_{}.pickle'.format(init_id))
+        with open(fit_files[init_id], 'wb') as f:
+            pickle.dump(fit, f)
+    collated = os.path.join(workdir, 'results.h5')
+    jax_pipeline.collate(collated, experiment_file, init_file, fit_files, {})
+    choice = jax_fit_choice(collated)
+    del choice['restarts']
+    return dict(choice, evaluation=jax_evaluation(mixture, collated))
+
+
+def jax_near_references(experiment_file, results, mixture, workdir):
+    """The JAX package's refits of the restarts near its choice on its
+    results store ``results`` (``near_restarts``), from the same
+    experiment and init: in float64 (``jax_enable_x64`` set, without which
+    JAX computes the float64 engine in float32), and in float32 with the
+    segment lengths moved by one float32 ulp (relative 2**-23, a sign per
+    segment from ``RandomState(seed)``) for each seed 1..PERTURBED_FITS.
+    Returns dict(float64=jax_refit's dict, perturbed=dict(chosen={seed:
+    restart}, elbo={seed: {restart: ELBO}}, proportion_divergent={seed:
+    {restart: value}}, evaluation={seed: the metrics of ``ACCURACY_BARS``
+    in the evaluation of the solution it chose}))."""
+    from remixt_tpu_torch.benchmark.export_evaluation import ACCURACY_BARS
+    import jax
+    import remixt_tpu.analysis.pipeline as jax_pipeline
+
+    ids = near_restarts(jax_fit_choice(results))
+    with open(experiment_file, 'rb') as f:
+        experiment = pickle.load(f)
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    grid = jax_pipeline.init(os.path.join(workdir, 'init.h5'),
+                             experiment_file, {})
+    perturbed = {name: {} for name in ('chosen', 'elbo',
+                                       'proportion_divergent', 'evaluation')}
+    length = experiment.count_data['length'].values.astype(np.float64)
+    for seed in range(1, PERTURBED_FITS + 1):
+        sign = np.random.RandomState(seed).choice([-1.0, 1.0],
+                                                  size=len(length))
+        experiment.count_data['length'] = length * (1.0 + sign * 2.0 ** -23)
+        refit = jax_refit(experiment, grid, ids, {}, mixture, os.path.join(
+            workdir, 'perturbed_{}'.format(seed)))
+        for name in ('chosen', 'elbo', 'proportion_divergent'):
+            perturbed[name][seed] = refit[name]
+        perturbed['evaluation'][seed] = {
+            name: value for name, value in refit['evaluation'].items()
+            if name in ACCURACY_BARS}
+    experiment.count_data['length'] = length
+    jax.config.update('jax_enable_x64', True)
+    float64 = jax_refit(experiment, grid, ids, {'engine_dtype': 'float64'},
+                        mixture, os.path.join(workdir, 'float64'))
+    jax.config.update('jax_enable_x64', False)
+    return dict(float64=float64, perturbed=perturbed)
+
+
+def phase11_near(workdir):
+    """``jax_near_references`` on a finished ``--phase11`` WORKDIR."""
+    with open(os.path.join(workdir, 'jax_mixture.pickle'), 'rb') as f:
+        mixture = pickle.load(f)
+    raw = os.path.join(workdir, 'jax')
+    return jax_near_references(
+        os.path.join(raw, 'experiment', 'sample_tumour.pickle'),
+        os.path.join(raw, 'results.h5'), mixture,
+        os.path.join(workdir, 'near'))
+
+
 def phase11_reference(workdir):
     """Run the JAX package's whole run path on phase 11's inputs and the
     port's up to the count table; print the constants of ``RUN_JAX``."""
     import remixt_tpu.workflow as jax_workflow
     import remixt_tpu.simulations.pipeline as jax_sim
-    from remixt_tpu.io.hdf5 import HDFStore
     import remixt_tpu_torch.workflow as torch_workflow
 
     cs = chip_smoke()
@@ -343,24 +495,19 @@ def phase11_reference(workdir):
     np.testing.assert_array_equal(mixture.segment_end,
                                   port_mixture.segment_end)
     np.testing.assert_array_equal(mixture.frac, port_mixture.frac)
-    with HDFStore(results, 'r') as store:
-        evaluation = jax_sim.evaluate_results(
-            mixture, store['/cn'], store['/brk_cn'], store['/mix'].values)
-        restarts = len(store['/stats'])
-    from remixt_tpu_torch.analysis.pipeline import optimal_init_id
-    from remixt_tpu_torch.io.store import read_store
-    chosen = int(optimal_init_id(read_store(results, keys=['stats'])['stats'],
-                                 {}))
-    metrics = {}
-    for name in ('cn_evaluation', 'brk_cn_evaluation', 'mix_results'):
-        metrics.update({k: float(v) for k, v in evaluation[name].items()})
     print('RUN_JAX = ' + repr(dict(
-        counts=digest, restarts=restarts, segments=digest['rows'],
-        chosen=chosen, evaluation=metrics)))
+        counts=digest, segments=digest['rows'],
+        evaluation=jax_evaluation(mixture, results),
+        **jax_fit_choice(results), **phase11_near(workdir))))
 
 
 if __name__ == '__main__':
-    if len(sys.argv) != 3 or sys.argv[1] != '--phase11':
-        sys.exit('usage: python tests/test_torch_run.py --phase11 WORKDIR')
+    if sys.argv[1:2] != ['--phase11'] or len(sys.argv) not in (3, 4) or \
+            sys.argv[3:] not in ([], ['--near']):
+        sys.exit('usage: python tests/test_torch_run.py --phase11 WORKDIR '
+                 '[--near]')
     sys.path.insert(0, REPO)
-    phase11_reference(sys.argv[2])
+    if sys.argv[3:]:
+        print('RUN_JAX.update(' + repr(phase11_near(sys.argv[2])) + ')')
+    else:
+        phase11_reference(sys.argv[2])
