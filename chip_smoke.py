@@ -129,7 +129,8 @@ Phases, in order; any failure exits non-zero:
    chromosomes 20–22 at their GRCh37 lengths (FASTA and index, gap table,
    SNP panel, mappability store as a directory), the accuracy benchmark's
    tumour mixture on it with its breakpoint table, and a tumour BAM at 2×
-   and a normal BAM at 1× (``make_run_fixture``); writes stand-ins of the
+   and a normal BAM at 1× (``make_run_fixture``, with phase 13's second
+   tumour BAM); writes stand-ins of the
    phasing tools first on the PATH (``write_standin_tools``); runs the
    CLI at the default config from numpy's global state seeded with
    ``RUN_NUMPY_SEED``, the fit on the card. Holds the count table to the
@@ -164,6 +165,25 @@ Phases, in order; any failure exits non-zero:
    time of every step, the peak device memory and the host's peak
    resident set.
 
+13. The multi-tumour ``run`` CLI: phase 11's inputs with a second tumour
+   BAM at 2×, ``tumour_b``, drawn from the same genomes with the two
+   tumour clones' fractions swapped (a second region of the same
+   patient; ``make_run_fixture(..., tumour_b=True)``), the CLI with
+   ``--tumour_sample_ids tumour tumour_b`` from numpy's global state
+   seeded with ``RUN_NUMPY_SEED``, one cohort fit on the card. Holds both
+   count tables to the JAX package's digests (``COHORT_JAX``), every
+   ``fb_grouped`` launch to one per sweep of every wave of both fits
+   (Σ ⌈Rᵢ / 8⌉ × 25), both results stores to the JAX keys with finite
+   ELBOs, and each tumour's own choice as phase 11 holds its one
+   (``check_chosen_restart``); then fits ``tumour_b``'s grid alone
+   through ``fit_many``, which must equal the cohort's fit of it (the
+   second on the card) bit for bit. Prints each step's wall time per
+   tumour, each fit's waves, the peak device memory and the host's peak
+   resident set. The inputs are made once, before phase 11, and phase 13
+   runs in a process of its own beside phases 11 and 12 (its run is
+   host work most of the time, as theirs is): the three phases' times
+   are taken with the other process running.
+
 The line before the last holds the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -175,6 +195,7 @@ import importlib.util
 import json
 import os
 import pickle
+import re
 import shutil
 import subprocess
 import sys
@@ -2619,15 +2640,21 @@ def count_table_digest(path):
 
 
 def make_run_fixture(root, chromosome_lengths, depths=None, with_hdf5=False,
-                     mixture_params=None):
+                     mixture_params=None, tumour_b=False):
     """The run path's inputs, made from seeds: the synthetic reference, the
     tumour mixture of ``run_mixture_params`` (the port's
     ``simulate_genome_mixture``), its breakpoint table, and a tumour and a
     normal BAM at ``depths``; ``mixture_params`` overrides simulation
     parameters (the tests' small genomes take fewer segments and events).
+    With ``tumour_b`` a third BAM, ``tumour_b``, is drawn after those two
+    (which it leaves as they were) at the tumour's depth unless ``depths``
+    gives its own: a second region of the same tumour, its two clones'
+    fractions swapped and the normal's kept; its truth, the mixture with
+    that ``frac``, is pickled beside the mixture.
     Returns dict(ref_data_dir, bams {sample:
     path}, breakpoint_file, mixture_file, pairs {sample: fragments},
-    config: the overrides of the defaults, times {step: seconds})."""
+    config: the overrides of the defaults, times {step: seconds}, and with
+    ``tumour_b`` mixture_files {tumour sample: its truth's pickle})."""
     from remixt_tpu_torch.simulations import pipeline as sim_pipeline
     depths = dict(RUN_DEPTH if depths is None else depths)
     rng = np.random.RandomState(RUN_SEED)
@@ -2651,13 +2678,23 @@ def make_run_fixture(root, chromosome_lengths, depths=None, with_hdf5=False,
     segments = (np.asarray(mixture.segment_chromosome_id).astype(str),
                 np.asarray(mixture.segment_start, dtype=np.int64),
                 np.asarray(mixture.segment_end, dtype=np.int64))
+    cn = np.asarray(mixture.cn, dtype=float)
     weights = {
-        'tumour': np.einsum('m,nma->na', np.asarray(mixture.frac),
-                            np.asarray(mixture.cn, dtype=float)),
+        'tumour': np.einsum('m,nma->na', np.asarray(mixture.frac), cn),
         'normal': np.ones((len(segments[0]), 2))}
+    extra = {}
+    if tumour_b:
+        mixture.frac = np.asarray(mixture.frac)[[0, 2, 1]]
+        weights['tumour_b'] = np.einsum('m,nma->na', mixture.frac, cn)
+        depths.setdefault('tumour_b', depths['tumour'])
+        mixture_files = {'tumour': mixture_file, 'tumour_b': os.path.join(
+            root, 'mixture_tumour_b.pickle')}
+        with open(mixture_files['tumour_b'], 'wb') as f:
+            pickle.dump(mixture, f)
+        extra['mixture_files'] = mixture_files
     bams, pairs = {}, {}
     t0 = time.time()
-    for sample in ('tumour', 'normal'):
+    for sample in weights:
         fragments = sample_reads(rng, chromosome_lengths, segments,
                                  weights[sample], depths[sample])
         bams[sample] = os.path.join(root, sample + '.bam')
@@ -2668,7 +2705,7 @@ def make_run_fixture(root, chromosome_lengths, depths=None, with_hdf5=False,
                 breakpoint_file=breakpoint_file, mixture_file=mixture_file,
                 pairs=pairs, config=reference_config(ref_dir,
                                                      chromosome_lengths),
-                times=times)
+                times=times, **extra)
 
 
 def reference_config(ref_dir, chromosome_lengths):
@@ -2783,26 +2820,78 @@ def first_on_path(bin_dir):
         os.environ['PATH'] = path
 
 
-def run_cli(label, root, chromosome_lengths, depths):
-    """Phase 11's inputs made in ``root``, then the ``run`` CLI on them
-    (``remixt_tpu_torch.ui.main.main``), from numpy's global state seeded
-    with ``RUN_NUMPY_SEED``, the stand-in phasing tools first on the PATH.
-    Returns dict(fixture, raw, results, times {step: [seconds]}, waves,
-    launches, whole)."""
+def sample_of(args):
+    """The one sample (``normal``, ``tumour`` or ``tumour_b``) whose files
+    a step's call ``args`` name, else None."""
+    names = set()
+
+    def scan(value):
+        if isinstance(value, str):
+            names.update(re.findall(r'(?<![A-Za-z0-9])(normal|tumour_b|'
+                                    r'tumour)(?![A-Za-z0-9])', value))
+        elif isinstance(value, (list, tuple)):
+            for v in value:
+                scan(v)
+        elif isinstance(value, dict):
+            for v in list(value) + list(value.values()):
+                scan(v)
+    scan(args)
+    return names.pop() if len(names) == 1 else None
+
+
+def sample_recorders(steps, samples):
+    """Patches for ``instrumented``: each call of a step of ``steps``
+    appends to ``samples[label]`` the sample it works on (``sample_of``),
+    beside the seconds its timer appends."""
+    import importlib
+    patches = []
+    for module, name, label in steps:
+        module = importlib.import_module('remixt_tpu_torch.' + module)
+
+        def recorder(*args, _fn=getattr(module, name), _label=label,
+                     **kwargs):
+            samples.setdefault(_label, []).append(
+                sample_of((args, kwargs)))
+            return _fn(*args, **kwargs)
+        patches.append((module, name, recorder))
+    return patches
+
+
+def make_cli_inputs(label, root, chromosome_lengths, depths,
+                    tumour_b=False):
+    """Phase 11's inputs, made in ``root``, with ``tumour_b`` the second
+    tumour's BAM of phase 13."""
+    fresh_directory(root)
+    fixture = make_run_fixture(root, chromosome_lengths, depths=depths,
+                               tumour_b=tumour_b)
+    log('{}: inputs made: reference {:.1f} s, mixture {:.1f} s, BAMs {:.1f} '
+        's; read pairs {} over {} chromosomes ({:.1f} Mb)'.format(
+            label, fixture['times']['reference'],
+            fixture['times']['mixture'], fixture['times']['bams'],
+            json.dumps(fixture['pairs']), len(chromosome_lengths),
+            sum(chromosome_lengths.values()) / 1e6))
+    return fixture
+
+
+def run_cli(label, root, chromosome_lengths, depths, fixture=None,
+            tumours=('tumour',)):
+    """Phase 11's inputs made in ``root`` (``fixture``, where they were
+    made before), then the ``run`` CLI on them
+    (``remixt_tpu_torch.ui.main.main``) for the ``tumours`` and the
+    normal, from numpy's global state seeded with ``RUN_NUMPY_SEED``, the
+    stand-in phasing tools first on the PATH.
+    Returns dict(fixture, raw, results {tumour: store}, times {step:
+    [seconds]}, samples {step: [the sample of each call]}, marks (the
+    start of every wave and the end of each fit's waves), waves, launches,
+    whole)."""
     import torch
     from remixt_tpu_torch.io import store
     from remixt_tpu_torch.ui import main as cli
 
     fresh_directory(root)
-    fixture = make_run_fixture(os.path.join(root, 'inputs'),
-                               chromosome_lengths, depths=depths)
-    log('{}: inputs made: reference {:.1f} s, mixture {:.1f} s, BAMs {:.1f} '
-        's; {} tumour and {} normal read pairs over {} chromosomes ({:.1f} '
-        'Mb)'.format(label, fixture['times']['reference'],
-                     fixture['times']['mixture'], fixture['times']['bams'],
-                     fixture['pairs']['tumour'], fixture['pairs']['normal'],
-                     len(chromosome_lengths),
-                     sum(chromosome_lengths.values()) / 1e6))
+    if fixture is None:
+        fixture = make_cli_inputs(label, os.path.join(root, 'inputs'),
+                                  chromosome_lengths, depths)
     bin_dir = write_standin_tools(os.path.join(root, 'bin'))
     log('{}: the phasing tools ({}) are stand-ins written by this script '
         '(the true phase with seeded switches), first on the PATH'.format(
@@ -2811,16 +2900,20 @@ def run_cli(label, root, chromosome_lengths, depths):
     with open(config_file, 'w') as f:
         json.dump(fixture['config'], f)
     raw = os.path.join(root, 'raw')
-    results = store.store_name(os.path.join(root, 'results'))
+    results = {t: store.store_name(os.path.join(
+        root, 'results' if len(tumours) == 1 else 'results_' + t))
+        for t in tumours}
 
     argv = ['run', fixture['ref_data_dir'], raw, fixture['breakpoint_file'],
-            '--tumour_sample_ids', 'tumour',
-            '--tumour_bam_files', fixture['bams']['tumour'],
-            '--results_files', results,
+            '--tumour_sample_ids', *tumours,
+            '--tumour_bam_files', *[fixture['bams'][t] for t in tumours],
+            '--results_files', *[results[t] for t in tumours],
             '--normal_sample_id', 'normal',
             '--normal_bam_file', fixture['bams']['normal'],
             '--config', config_file]
-    with instrumented(RUN_STEPS) as (stages, marks), first_on_path(bin_dir):
+    samples = {}
+    with instrumented(RUN_STEPS, sample_recorders(RUN_STEPS, samples)) as \
+            (stages, marks), first_on_path(bin_dir):
         torch.cuda.reset_peak_memory_stats()
         reset_chain_launches()
         np.random.seed(RUN_NUMPY_SEED)
@@ -2829,8 +2922,8 @@ def run_cli(label, root, chromosome_lengths, depths):
         whole = time.time() - t0
         launches = chain_launches()
     return dict(fixture=fixture, raw=raw, results=results, times=stages,
-                waves=np.diff(marks).tolist(), launches=launches,
-                whole=whole)
+                samples=samples, marks=marks, waves=np.diff(marks).tolist(),
+                launches=launches, whole=whole)
 
 
 def log_run_steps(label, run):
@@ -2963,10 +3056,19 @@ def check_chosen_restart(label, mixture, tables, reference):
     check(own)
 
 
-def phase_run(smi):
+def results_keys(stats):
+    """The keys of a results store of the restarts in ``stats``."""
+    keys = {'stats', 'read_depth', 'minor_modes', 'cn', 'mix', 'brk_cn'}
+    for init_id in stats['init_id']:
+        keys |= {'solutions/solution_{}/{}'.format(init_id, name)
+                 for name in ('cn', 'brk_cn', 'h', 'mix')}
+    return keys
+
+
+def phase_run(smi, fixture):
     """Phase 11: the run CLI from two synthetic BAMs over RUN_CHROMOSOMES
-    to a results store, the fit on the card. Returns the fb_grouped
-    launches."""
+    (``fixture``, made by ``make_cli_inputs``) to a results store, the fit
+    on the card. Returns the fb_grouped launches."""
     import torch
     from remixt_tpu_torch import config as config_mod
     from remixt_tpu_torch.io.store import read_store
@@ -2976,7 +3078,8 @@ def phase_run(smi):
     root = os.path.join(here, 'build', 'chip_smoke', 'run')
     t_phase = time.time()
     reset = host_peak_reset()
-    run = run_cli('phase 11', root, RUN_CHROMOSOMES, RUN_DEPTH)
+    run = run_cli('phase 11', root, RUN_CHROMOSOMES, RUN_DEPTH,
+                  fixture=fixture)
     device_gb = torch.cuda.max_memory_allocated() / 1e9
     log_run_steps('phase 11', run)
 
@@ -2988,7 +3091,8 @@ def phase_run(smi):
             digest['rows'], int(digest['floats']['readcount'][0]),
             json.dumps(digest)))
 
-    tables = read_store(run['results'])
+    results = run['results']['tumour']
+    tables = read_store(results)
     stats = tables['stats']
     restarts = len(stats['init_id'])
     if restarts != RUN_JAX['restarts']:
@@ -2999,10 +3103,7 @@ def phase_run(smi):
     num_vi = config_mod.get_param({}, 'num_update_iter')
     expected = -(-restarts // WAVE) * num_em * num_vi
     expect_launches('phase 11', run['launches'], 'fb_grouped', expected)
-    keys = {'stats', 'read_depth', 'minor_modes', 'cn', 'mix', 'brk_cn'}
-    for init_id in stats['init_id']:
-        keys |= {'solutions/solution_{}/{}'.format(init_id, name)
-                 for name in ('cn', 'brk_cn', 'h', 'mix')}
+    keys = results_keys(stats)
     if set(tables) != keys:
         raise AssertionError('phase 11: results keys {} missing, {} extra'
                              .format(sorted(keys - set(tables)),
@@ -3011,8 +3112,8 @@ def phase_run(smi):
         raise AssertionError('phase 11: non-finite ELBO')
     log('phase 11: results store {} ({}): {} keys, grid of {} restarts, {} '
         'EM x {} VI, fb_grouped launches {}; ELBOs {:.6g} to {:.6g}'.format(
-            os.path.relpath(run['results'], here),
-            'HDF5' if run['results'].endswith('.h5') else
+            os.path.relpath(results, here),
+            'HDF5' if results.endswith('.h5') else
             'TSV tables: h5py is absent', len(tables), restarts, num_em,
             num_vi, expected, float(np.min(stats['elbo'])),
             float(np.max(stats['elbo']))))
@@ -3647,6 +3748,996 @@ def phase_read_benchmark(smi):
     return expected
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the multi-tumour run CLI, one cohort fit on the card
+# ---------------------------------------------------------------------------
+
+# the tumour samples of phase 13: phase 11's and a second region of the
+# same tumour, its two clones' fractions swapped (``make_run_fixture``)
+COHORT = ('tumour', 'tumour_b')
+
+# what the JAX package makes of phase 13's inputs on the CPU (``python
+# tests/test_torch_cohort.py --phase13 WORKDIR``), per tumour what
+# ``RUN_JAX`` holds for phase 11's one
+COHORT_JAX = {'tumour': {'counts': {'rows': 551,
+                                    'columns': ['chromosome',
+                                                'start',
+                                                'end',
+                                                'readcount',
+                                                'allele_b_readcount',
+                                                'allele_a_readcount',
+                                                'major_readcount',
+                                                'minor_readcount',
+                                                'major_is_allele_a',
+                                                'bias',
+                                                'length'],
+                                    'ints': {'chromosome': '3e316fd309216215',
+                                             'start': 'bebdc95662a32ae9',
+                                             'end': '67f47485e7eea11c',
+                                             'allele_b_readcount': 'a4a2abc34a9cd350',
+                                             'allele_a_readcount': 'a04311ebef438d10',
+                                             'major_readcount': 'c5e1dc134bd0f2cf',
+                                             'minor_readcount': 'e4e9f533f4b94235',
+                                             'major_is_allele_a': '6c4df12b4ca6c10b'},
+                                    'floats': {'readcount': [1558638.0,
+                                                             441475513.0],
+                                               'bias': [0.9999999999999734,
+                                                        272.8879090214796],
+                                               'length': [161175535.0,
+                                                          43982854731.56945]}},
+                         'segments': 551,
+                         'evaluation': {'proportion_cn_correct': 0.0,
+                                        'proportion_dom_cn_correct': 0.0,
+                                        'proportion_clonal_correct': 0.5724340235631915,
+                                        'proportion_subclonal_correct': 0.5724340235631915,
+                                        'pred_ploidy': 4.708467780175199,
+                                        'pred_ploidy_1': 4.855205406949634,
+                                        'pred_ploidy_2': 4.561730153400763,
+                                        'pred_proportion_divergent': 0.403190754105454,
+                                        'true_ploidy': 2.555011239764149,
+                                        'true_ploidy_1': 2.5901589841162926,
+                                        'true_ploidy_2': 2.519863495412005,
+                                        'true_proportion_divergent': 0.29931625168795,
+                                        'brk_cn_correct_proportion': 0.3488372093023256,
+                                        'brk_cn_present_num_true': 97.0,
+                                        'brk_cn_present_num_pos': 148.0,
+                                        'brk_cn_present_num_true_pos': 86.0,
+                                        'brk_cn_subclonal_num_true': 75.0,
+                                        'brk_cn_subclonal_num_pos': 12.0,
+                                        'brk_cn_subclonal_num_true_pos': 2.0,
+                                        'mix_true_0': 0.4,
+                                        'mix_true_1': 0.4,
+                                        'mix_true_2': 0.19999999999999996,
+                                        'mix_pred_0': 0.5316380262374878,
+                                        'mix_pred_1': 0.2732788026332855,
+                                        'mix_pred_2': 0.19508324563503265},
+                         'restarts': 72,
+                         'chosen': 2,
+                         'elbo': {0: -4016.868408203125,
+                                  1: -3915.84375,
+                                  2: -3913.057861328125,
+                                  3: -4059.875,
+                                  4: -3954.11572265625,
+                                  5: -3941.62158203125,
+                                  6: -4045.37109375,
+                                  7: -3887.95751953125,
+                                  8: -3887.640625,
+                                  9: -4043.450439453125,
+                                  10: -3924.648193359375,
+                                  11: -3908.501953125,
+                                  12: -4230.064453125,
+                                  13: -4150.0166015625,
+                                  14: -4124.54638671875,
+                                  15: -4209.25244140625,
+                                  16: -4106.166015625,
+                                  17: -4091.230224609375,
+                                  18: -4281.12744140625,
+                                  19: -4113.2060546875,
+                                  20: -4094.8818359375,
+                                  21: -4313.22216796875,
+                                  22: -4211.60302734375,
+                                  23: -4207.14794921875,
+                                  24: -4317.38916015625,
+                                  25: -4268.8154296875,
+                                  26: -4244.498046875,
+                                  27: -4289.07568359375,
+                                  28: -4172.18017578125,
+                                  29: -4193.9521484375,
+                                  30: -4267.6875,
+                                  31: -4222.4150390625,
+                                  32: -4213.64013671875,
+                                  33: -4351.03369140625,
+                                  34: -4152.78076171875,
+                                  35: -4138.19287109375,
+                                  36: -4069.021484375,
+                                  37: -3954.71728515625,
+                                  38: -3944.38720703125,
+                                  39: -4053.8779296875,
+                                  40: -3940.7861328125,
+                                  41: -3863.419677734375,
+                                  42: -4053.8349609375,
+                                  43: -3897.48291015625,
+                                  44: -3897.04296875,
+                                  45: -4073.11181640625,
+                                  46: -3902.272216796875,
+                                  47: -3868.45166015625,
+                                  48: -4519.818359375,
+                                  49: -4463.5234375,
+                                  50: -4494.42138671875,
+                                  51: -4642.02880859375,
+                                  52: -4409.69384765625,
+                                  53: -4377.4541015625,
+                                  54: -4594.68115234375,
+                                  55: -4418.43359375,
+                                  56: -4402.435546875,
+                                  57: -4612.333984375,
+                                  58: -4492.7529296875,
+                                  59: -4514.45361328125,
+                                  60: -4165.11328125,
+                                  61: -4055.34912109375,
+                                  62: -4039.41845703125,
+                                  63: -4164.1494140625,
+                                  64: -4023.351318359375,
+                                  65: -3992.773681640625,
+                                  66: -4190.11181640625,
+                                  67: -4016.83935546875,
+                                  68: -3983.861572265625,
+                                  69: -4177.09716796875,
+                                  70: -4043.965576171875,
+                                  71: -4034.121826171875},
+                         'proportion_divergent': {0: 0.23709736076956217,
+                                                  1: 0.3882051125924175,
+                                                  2: 0.46578492997444826,
+                                                  3: 0.3037022418391329,
+                                                  4: 0.5258647374128373,
+                                                  5: 0.5576977103867355,
+                                                  6: 0.31660064663118376,
+                                                  7: 0.5415622130006018,
+                                                  8: 0.5625271425637913,
+                                                  9: 0.2817289690069832,
+                                                  10: 0.4909737842188068,
+                                                  11: 0.5652745295215491,
+                                                  12: 0.33517323484635714,
+                                                  13: 0.4591305414769552,
+                                                  14: 0.4700199313849428,
+                                                  15: 0.3822517666236959,
+                                                  16: 0.49352340883731033,
+                                                  17: 0.49044781940163135,
+                                                  18: 0.3794408122107636,
+                                                  19: 0.5686985394183561,
+                                                  20: 0.5817421134905713,
+                                                  21: 0.3917115418875625,
+                                                  22: 0.6003692884968733,
+                                                  23: 0.6260920608272015,
+                                                  24: 0.276178733926683,
+                                                  25: 0.3655924697187174,
+                                                  26: 0.372344667704705,
+                                                  27: 0.3238468225804263,
+                                                  28: 0.49153246294520797,
+                                                  29: 0.5006002116973072,
+                                                  30: 0.3527724999972485,
+                                                  31: 0.4688701822341996,
+                                                  32: 0.4761680068509608,
+                                                  33: 0.40070102914620426,
+                                                  34: 0.5318690492723616,
+                                                  35: 0.5496363727578838,
+                                                  36: 0.167585309459271,
+                                                  37: 0.5081993700491011,
+                                                  38: 0.5277449358843473,
+                                                  39: 0.255214670620389,
+                                                  40: 0.5182963587100681,
+                                                  41: 0.5402973106884436,
+                                                  42: 0.29770430666966763,
+                                                  43: 0.5249359281525185,
+                                                  44: 0.547291829901579,
+                                                  45: 0.34389025458682926,
+                                                  46: 0.5451550758059178,
+                                                  47: 0.6059112813861957,
+                                                  48: 0.45142468160288945,
+                                                  49: 0.5358903784528518,
+                                                  50: 0.5475647608316581,
+                                                  51: 0.5122853892811899,
+                                                  52: 0.6134764267396657,
+                                                  53: 0.623299607746886,
+                                                  54: 0.5431743447892627,
+                                                  55: 0.6464206632404005,
+                                                  56: 0.6601189509513524,
+                                                  57: 0.46570626188033587,
+                                                  58: 0.5749489464611003,
+                                                  59: 0.5909558339157251,
+                                                  60: 0.281666102428531,
+                                                  61: 0.5118521500931508,
+                                                  62: 0.5680840764464173,
+                                                  63: 0.31175878516829825,
+                                                  64: 0.5745409464296007,
+                                                  65: 0.6160337642457845,
+                                                  66: 0.3965978925879638,
+                                                  67: 0.5877971431970209,
+                                                  68: 0.5890129534780325,
+                                                  69: 0.4289744139697705,
+                                                  70: 0.618937369902361,
+                                                  71: 0.6283344515528501},
+                         'float64': {'chosen': 2,
+                                     'elbo': {1: -3914.986665015934,
+                                              2: -3914.1281441748547,
+                                              7: -3887.837560780227,
+                                              8: -3887.9548915074047,
+                                              11: -3919.117358927324,
+                                              41: -3886.380381091758,
+                                              43: -3897.7968277678306,
+                                              44: -3897.2994481748547,
+                                              46: -3904.5477258859264,
+                                              47: -3869.7680003588143},
+                                     'proportion_divergent': {1: 0.3882051125924175,
+                                                              2: 0.46058113214972496,
+                                                              7: 0.5553784369390758,
+                                                              8: 0.5625271425637913,
+                                                              11: 0.5663441105393799,
+                                                              41: 0.5509830354055129,
+                                                              43: 0.5249359281525185,
+                                                              44: 0.5420629444444979,
+                                                              46: 0.5423218884337442,
+                                                              47: 0.6059112813861957},
+                                     'evaluation': {'proportion_cn_correct': 0.0,
+                                                    'proportion_dom_cn_correct': 0.0,
+                                                    'proportion_clonal_correct': 0.5588140346486208,
+                                                    'proportion_subclonal_correct': 0.5588140346486208,
+                                                    'pred_ploidy': 4.708475023830385,
+                                                    'pred_ploidy_1': 4.855219894260006,
+                                                    'pred_ploidy_2': 4.561730153400763,
+                                                    'pred_proportion_divergent': 0.41199574736947514,
+                                                    'true_ploidy': 2.555011239764149,
+                                                    'true_ploidy_1': 2.5901589841162926,
+                                                    'true_ploidy_2': 2.519863495412005,
+                                                    'true_proportion_divergent': 0.29931625168795,
+                                                    'brk_cn_correct_proportion': 0.34418604651162793,
+                                                    'brk_cn_present_num_true': 97.0,
+                                                    'brk_cn_present_num_pos': 149.0,
+                                                    'brk_cn_present_num_true_pos': 86.0,
+                                                    'brk_cn_subclonal_num_true': 75.0,
+                                                    'brk_cn_subclonal_num_pos': 12.0,
+                                                    'brk_cn_subclonal_num_true_pos': 2.0,
+                                                    'mix_true_0': 0.4,
+                                                    'mix_true_1': 0.4,
+                                                    'mix_true_2': 0.19999999999999996,
+                                                    'mix_pred_0': 0.5249584626127873,
+                                                    'mix_pred_1': 0.2875301611572322,
+                                                    'mix_pred_2': 0.18751137622998051}},
+                         'perturbed': {'chosen': {1: 2,
+                                                  2: 1,
+                                                  3: 1,
+                                                  4: 1,
+                                                  5: 2,
+                                                  6: 2,
+                                                  7: 2,
+                                                  8: 2},
+                                       'elbo': {1: {1: -3918.770263671875,
+                                                    2: -3917.85302734375,
+                                                    7: -3887.3671875,
+                                                    8: -3887.7822265625,
+                                                    11: -3915.99072265625,
+                                                    41: -3861.71728515625,
+                                                    43: -3897.205078125,
+                                                    44: -3897.03564453125,
+                                                    46: -3903.54443359375,
+                                                    47: -3865.6005859375},
+                                                2: {1: -3922.378173828125,
+                                                    2: -3917.578125,
+                                                    7: -3887.61474609375,
+                                                    8: -3887.64599609375,
+                                                    11: -3908.780029296875,
+                                                    41: -3888.952392578125,
+                                                    43: -3896.48779296875,
+                                                    44: -3897.0546875,
+                                                    46: -3900.4130859375,
+                                                    47: -3867.572265625},
+                                                3: {1: -3923.950927734375,
+                                                    2: -3918.38037109375,
+                                                    7: -3887.5029296875,
+                                                    8: -3887.6455078125,
+                                                    11: -3916.2236328125,
+                                                    41: -3861.611083984375,
+                                                    43: -3896.5283203125,
+                                                    44: -3902.80712890625,
+                                                    46: -3901.313232421875,
+                                                    47: -3865.96728515625},
+                                                4: {1: -3918.02392578125,
+                                                    2: -3918.72607421875,
+                                                    7: -3887.78466796875,
+                                                    8: -3887.65185546875,
+                                                    11: -3919.5341796875,
+                                                    41: -3889.48291015625,
+                                                    43: -3897.459716796875,
+                                                    44: -3897.146484375,
+                                                    46: -3902.5927734375,
+                                                    47: -3865.3369140625},
+                                                5: {1: -3923.807861328125,
+                                                    2: -3914.087890625,
+                                                    7: -3887.4912109375,
+                                                    8: -3887.787109375,
+                                                    11: -3909.31640625,
+                                                    41: -3885.728515625,
+                                                    43: -3896.367431640625,
+                                                    44: -3898.9765625,
+                                                    46: -3901.9580078125,
+                                                    47: -3865.406982421875},
+                                                6: {1: -3924.4462890625,
+                                                    2: -3918.7939453125,
+                                                    7: -3887.5556640625,
+                                                    8: -3887.6484375,
+                                                    11: -3918.7607421875,
+                                                    41: -3889.572509765625,
+                                                    43: -3897.2578125,
+                                                    44: -3897.615966796875,
+                                                    46: -3901.517578125,
+                                                    47: -3866.0458984375},
+                                                7: {1: -3918.605224609375,
+                                                    2: -3911.16845703125,
+                                                    7: -3892.87255859375,
+                                                    8: -3887.64453125,
+                                                    11: -3916.298828125,
+                                                    41: -3885.63232421875,
+                                                    43: -3896.22509765625,
+                                                    44: -3896.63623046875,
+                                                    46: -3903.73779296875,
+                                                    47: -3867.366455078125},
+                                                8: {1: -3915.513671875,
+                                                    2: -3914.69482421875,
+                                                    7: -3889.7236328125,
+                                                    8: -3887.789306640625,
+                                                    11: -3906.92041015625,
+                                                    41: -3867.1357421875,
+                                                    43: -3895.6533203125,
+                                                    44: -3896.8720703125,
+                                                    46: -3902.444580078125,
+                                                    47: -3865.01220703125}},
+                                       'proportion_divergent': {1: {1: 0.39859037653439683,
+                                                                    2: 0.4986900853391252,
+                                                                    7: 0.5415622129937703,
+                                                                    8: 0.5625271432180075,
+                                                                    11: 0.5713082533165548,
+                                                                    41: 0.5402973100387423,
+                                                                    43: 0.5249359280117312,
+                                                                    44: 0.5472918295259525,
+                                                                    46: 0.5514635004151424,
+                                                                    47: 0.612604028381108},
+                                                                2: {1: 0.42978892372197575,
+                                                                    2: 0.5023839235958749,
+                                                                    7: 0.5415622144755449,
+                                                                    8: 0.5625271433746108,
+                                                                    11: 0.5656651815128848,
+                                                                    41: 0.5673988028311588,
+                                                                    43: 0.5249359308987608,
+                                                                    44: 0.5472918318786102,
+                                                                    46: 0.545155074740851,
+                                                                    47: 0.6145808445547399},
+                                                                3: {1: 0.42978892226006726,
+                                                                    2: 0.5004606960668466,
+                                                                    7: 0.5415622125410003,
+                                                                    8: 0.562527140505954,
+                                                                    11: 0.5678851753896088,
+                                                                    41: 0.5411472080949663,
+                                                                    43: 0.524935928538361,
+                                                                    44: 0.550966268232158,
+                                                                    46: 0.5442911678602024,
+                                                                    47: 0.6074529332341629},
+                                                                4: {1: 0.3985903728330466,
+                                                                    2: 0.5036462640861578,
+                                                                    7: 0.5415622137490084,
+                                                                    8: 0.5625271431881612,
+                                                                    11: 0.5713082518045138,
+                                                                    41: 0.5673988029330003,
+                                                                    43: 0.5249359296504849,
+                                                                    44: 0.5472918311147249,
+                                                                    46: 0.5450137472118863,
+                                                                    47: 0.6126040287019154},
+                                                                5: {1: 0.42978891982194806,
+                                                                    2: 0.4714876924734633,
+                                                                    7: 0.541562211770216,
+                                                                    8: 0.5625271419810384,
+                                                                    11: 0.5634780902402167,
+                                                                    41: 0.5673988037412979,
+                                                                    43: 0.5249359272371933,
+                                                                    44: 0.5590971016817742,
+                                                                    46: 0.5430274427668887,
+                                                                    47: 0.6145808443878304},
+                                                                6: {1: 0.42978892039807215,
+                                                                    2: 0.481033414072402,
+                                                                    7: 0.5415622103936304,
+                                                                    8: 0.5625271393222706,
+                                                                    11: 0.5713082507862333,
+                                                                    41: 0.5673988000291748,
+                                                                    43: 0.5249359269186087,
+                                                                    44: 0.5590971002005105,
+                                                                    46: 0.5442911645126831,
+                                                                    47: 0.6126040258734554},
+                                                                7: {1: 0.40332609683074244,
+                                                                    2: 0.4769256278591481,
+                                                                    7: 0.5558580952329414,
+                                                                    8: 0.5625271420788189,
+                                                                    11: 0.5678851716070911,
+                                                                    41: 0.5673988016527836,
+                                                                    43: 0.5249359255561522,
+                                                                    44: 0.5472918283408825,
+                                                                    46: 0.5430274429102896,
+                                                                    47: 0.6145808427184587},
+                                                                8: {1: 0.3985903732852502,
+                                                                    2: 0.48158402215520735,
+                                                                    7: 0.5558580930521059,
+                                                                    8: 0.5625271393000217,
+                                                                    11: 0.5656651767336982,
+                                                                    41: 0.5552700267546564,
+                                                                    43: 0.5249359278149246,
+                                                                    44: 0.5420629434910477,
+                                                                    46: 0.5365776893905537,
+                                                                    47: 0.6126040254008646}},
+                                       'evaluation': {1: {'proportion_cn_correct': 0.0,
+                                                          'proportion_dom_cn_correct': 0.0,
+                                                          'brk_cn_correct_proportion': 0.3488372093023256,
+                                                          'mix_pred_0': 0.5167535543441772,
+                                                          'mix_pred_1': 0.2884379029273987,
+                                                          'mix_pred_2': 0.19480860233306885},
+                                                      2: {'proportion_cn_correct': 0.0,
+                                                          'proportion_dom_cn_correct': 0.0,
+                                                          'brk_cn_correct_proportion': 0.3488372093023256,
+                                                          'mix_pred_0': 0.5239952802658081,
+                                                          'mix_pred_1': 0.27717819809913635,
+                                                          'mix_pred_2': 0.19882649183273315},
+                                                      3: {'proportion_cn_correct': 0.0,
+                                                          'proportion_dom_cn_correct': 0.0,
+                                                          'brk_cn_correct_proportion': 0.3488372093023256,
+                                                          'mix_pred_0': 0.51580411195755,
+                                                          'mix_pred_1': 0.2762809097766876,
+                                                          'mix_pred_2': 0.20791493356227875},
+                                                      4: {'proportion_cn_correct': 0.0,
+                                                          'proportion_dom_cn_correct': 0.0,
+                                                          'brk_cn_correct_proportion': 0.3488372093023256,
+                                                          'mix_pred_0': 0.5225006341934204,
+                                                          'mix_pred_1': 0.2782987952232361,
+                                                          'mix_pred_2': 0.19920065999031067},
+                                                      5: {'proportion_cn_correct': 0.0,
+                                                          'proportion_dom_cn_correct': 0.0,
+                                                          'brk_cn_correct_proportion': 0.3488372093023256,
+                                                          'mix_pred_0': 0.5284746289253235,
+                                                          'mix_pred_1': 0.2832315266132355,
+                                                          'mix_pred_2': 0.18829385936260223},
+                                                      6: {'proportion_cn_correct': 0.0,
+                                                          'proportion_dom_cn_correct': 0.0,
+                                                          'brk_cn_correct_proportion': 0.3488372093023256,
+                                                          'mix_pred_0': 0.5162782669067383,
+                                                          'mix_pred_1': 0.29023903608322144,
+                                                          'mix_pred_2': 0.19348275661468506},
+                                                      7: {'proportion_cn_correct': 0.0,
+                                                          'proportion_dom_cn_correct': 0.0,
+                                                          'brk_cn_correct_proportion': 0.3488372093023256,
+                                                          'mix_pred_0': 0.5310206413269043,
+                                                          'mix_pred_1': 0.2859811782836914,
+                                                          'mix_pred_2': 0.1829981654882431},
+                                                      8: {'proportion_cn_correct': 0.0,
+                                                          'proportion_dom_cn_correct': 0.0,
+                                                          'brk_cn_correct_proportion': 0.3488372093023256,
+                                                          'mix_pred_0': 0.5230980515480042,
+                                                          'mix_pred_1': 0.2788161337375641,
+                                                          'mix_pred_2': 0.19808582961559296}}}},
+              'tumour_b': {'counts': {'rows': 551,
+                                      'columns': ['chromosome',
+                                                  'start',
+                                                  'end',
+                                                  'readcount',
+                                                  'allele_b_readcount',
+                                                  'allele_a_readcount',
+                                                  'major_readcount',
+                                                  'minor_readcount',
+                                                  'major_is_allele_a',
+                                                  'bias',
+                                                  'length'],
+                                      'ints': {'chromosome': '3e316fd309216215',
+                                               'start': 'bebdc95662a32ae9',
+                                               'end': '67f47485e7eea11c',
+                                               'allele_b_readcount': '054728972fcac1b4',
+                                               'allele_a_readcount': 'e8cb37d48db065fc',
+                                               'major_readcount': '9a5362793c9f449a',
+                                               'minor_readcount': 'b35fc354e47e558c',
+                                               'major_is_allele_a': '14e8e84df4e2cf16'},
+                                      'floats': {'readcount': [1558486.0,
+                                                               446584480.0],
+                                                 'bias': [0.9999999999999729,
+                                                          272.7892329935776],
+                                                 'length': [161175535.0,
+                                                            43966950569.98075]}},
+                           'segments': 551,
+                           'evaluation': {'proportion_cn_correct': 0.0,
+                                          'proportion_dom_cn_correct': 0.00020279132313722427,
+                                          'proportion_clonal_correct': 0.4185142366674942,
+                                          'proportion_subclonal_correct': 0.4185142366674942,
+                                          'pred_ploidy': 4.830980182569271,
+                                          'pred_ploidy_1': 4.731693479410508,
+                                          'pred_ploidy_2': 4.930266885728035,
+                                          'pred_proportion_divergent': 0.4750490606406239,
+                                          'true_ploidy': 2.555011239764149,
+                                          'true_ploidy_1': 2.519863495412005,
+                                          'true_ploidy_2': 2.5901589841162926,
+                                          'true_proportion_divergent': 0.29931625168795,
+                                          'brk_cn_correct_proportion': 0.3395348837209302,
+                                          'brk_cn_present_num_true': 97.0,
+                                          'brk_cn_present_num_pos': 165.0,
+                                          'brk_cn_present_num_true_pos': 90.0,
+                                          'brk_cn_subclonal_num_true': 75.0,
+                                          'brk_cn_subclonal_num_pos': 46.0,
+                                          'brk_cn_subclonal_num_true_pos': 20.0,
+                                          'mix_true_0': 0.4,
+                                          'mix_true_1': 0.4,
+                                          'mix_true_2': 0.19999999999999996,
+                                          'mix_pred_0': 0.4663347899913788,
+                                          'mix_pred_1': 0.41115397214889526,
+                                          'mix_pred_2': 0.12251130491495132},
+                           'restarts': 60,
+                           'chosen': 31,
+                           'elbo': {0: -4232.68798828125,
+                                    1: -4070.08349609375,
+                                    2: -4031.65966796875,
+                                    3: -4143.169921875,
+                                    4: -4028.004638671875,
+                                    5: -4054.56201171875,
+                                    6: -4158.74365234375,
+                                    7: -4085.8095703125,
+                                    8: -4092.80029296875,
+                                    9: -4183.6513671875,
+                                    10: -4100.583984375,
+                                    11: -4070.00732421875,
+                                    12: -4264.90380859375,
+                                    13: -4194.87939453125,
+                                    14: -4188.935546875,
+                                    15: -4343.2255859375,
+                                    16: -4238.521484375,
+                                    17: -4239.447265625,
+                                    18: -4311.8466796875,
+                                    19: -4195.5927734375,
+                                    20: -4193.98046875,
+                                    21: -4340.6669921875,
+                                    22: -4227.5693359375,
+                                    23: -4193.93212890625,
+                                    24: -4053.970703125,
+                                    25: -3954.244384765625,
+                                    26: -3944.1845703125,
+                                    27: -3990.595703125,
+                                    28: -3891.628173828125,
+                                    29: -3868.7197265625,
+                                    30: -3963.1669921875,
+                                    31: -3869.935791015625,
+                                    32: -3852.44482421875,
+                                    33: -4014.074951171875,
+                                    34: -3904.41357421875,
+                                    35: -3911.72314453125,
+                                    36: -4474.12060546875,
+                                    37: -4374.0888671875,
+                                    38: -4375.466796875,
+                                    39: -4544.24267578125,
+                                    40: -4446.40234375,
+                                    41: -4396.61962890625,
+                                    42: -4538.64111328125,
+                                    43: -4443.10888671875,
+                                    44: -4440.68017578125,
+                                    45: -4543.1513671875,
+                                    46: -4440.9375,
+                                    47: -4443.83642578125,
+                                    48: -4118.28271484375,
+                                    49: -4024.02490234375,
+                                    50: -4003.53955078125,
+                                    51: -4150.271484375,
+                                    52: -3967.8837890625,
+                                    53: -3956.43603515625,
+                                    54: -4155.609375,
+                                    55: -4039.376220703125,
+                                    56: -4022.446533203125,
+                                    57: -4150.78125,
+                                    58: -4008.355712890625,
+                                    59: -3996.5947265625},
+                           'proportion_divergent': {0: 0.3500567127640459,
+                                                    1: 0.5798717858998286,
+                                                    2: 0.5760551016202416,
+                                                    3: 0.38209340793203517,
+                                                    4: 0.6009812987607582,
+                                                    5: 0.6160310503707481,
+                                                    6: 0.46551621791728015,
+                                                    7: 0.646719340983241,
+                                                    8: 0.6697705183682621,
+                                                    9: 0.4323916629932792,
+                                                    10: 0.6101377469829602,
+                                                    11: 0.6147971434100448,
+                                                    12: 0.3030990534537333,
+                                                    13: 0.35675805352257,
+                                                    14: 0.3654670908590651,
+                                                    15: 0.33635906090147305,
+                                                    16: 0.41100296670442826,
+                                                    17: 0.4523216662706793,
+                                                    18: 0.42603825326386574,
+                                                    19: 0.5597130380923402,
+                                                    20: 0.5369205918259747,
+                                                    21: 0.41390376937578865,
+                                                    22: 0.5392235172564863,
+                                                    23: 0.596350802482757,
+                                                    24: 0.20701925406860422,
+                                                    25: 0.43665440889223767,
+                                                    26: 0.4760483393226245,
+                                                    27: 0.30809729367834876,
+                                                    28: 0.5085353774440758,
+                                                    29: 0.5477083099300308,
+                                                    30: 0.3448771765170887,
+                                                    31: 0.47763084075103046,
+                                                    32: 0.5337658530113689,
+                                                    33: 0.36041191573910014,
+                                                    34: 0.5734703714110133,
+                                                    35: 0.602790740026259,
+                                                    36: 0.3290575128164531,
+                                                    37: 0.5149242166377151,
+                                                    38: 0.5199967516062328,
+                                                    39: 0.341875651928836,
+                                                    40: 0.5297637740538227,
+                                                    41: 0.552901001004531,
+                                                    42: 0.4186712464573752,
+                                                    43: 0.5421524357853424,
+                                                    44: 0.5942012228802102,
+                                                    45: 0.41769190372350595,
+                                                    46: 0.5503942040687446,
+                                                    47: 0.5750537586812542,
+                                                    48: 0.2949318208836835,
+                                                    49: 0.5559115532246739,
+                                                    50: 0.5995705859072155,
+                                                    51: 0.3078893057728515,
+                                                    52: 0.5795950402997733,
+                                                    53: 0.5964210780487207,
+                                                    54: 0.338769970550173,
+                                                    55: 0.534707263713135,
+                                                    56: 0.6169475048373536,
+                                                    57: 0.3689753081008589,
+                                                    58: 0.553196482543913,
+                                                    59: 0.6128710227934586},
+                           'float64': {'chosen': 31,
+                                       'elbo': {29: -3869.3804628021553,
+                                                31: -3870.8711355052574,
+                                                32: -3854.8836993763516},
+                                       'proportion_divergent': {29: 0.5477083099300308,
+                                                                31: 0.4962720357065897,
+                                                                32: 0.5377675265473826},
+                                       'evaluation': {'proportion_cn_correct': 0.0,
+                                                      'proportion_dom_cn_correct': 0.00020279132313722427,
+                                                      'proportion_clonal_correct': 0.4559319378092959,
+                                                      'proportion_subclonal_correct': 0.4559319378092959,
+                                                      'pred_ploidy': 4.802234877023985,
+                                                      'pred_ploidy_1': 4.736285100589242,
+                                                      'pred_ploidy_2': 4.868184653458727,
+                                                      'pred_proportion_divergent': 0.494201626195936,
+                                                      'true_ploidy': 2.555011239764149,
+                                                      'true_ploidy_1': 2.519863495412005,
+                                                      'true_ploidy_2': 2.5901589841162926,
+                                                      'true_proportion_divergent': 0.29931625168795,
+                                                      'brk_cn_correct_proportion': 0.3302325581395349,
+                                                      'brk_cn_present_num_true': 97.0,
+                                                      'brk_cn_present_num_pos': 165.0,
+                                                      'brk_cn_present_num_true_pos': 90.0,
+                                                      'brk_cn_subclonal_num_true': 75.0,
+                                                      'brk_cn_subclonal_num_pos': 41.0,
+                                                      'brk_cn_subclonal_num_true_pos': 16.0,
+                                                      'mix_true_0': 0.4,
+                                                      'mix_true_1': 0.4,
+                                                      'mix_true_2': 0.19999999999999996,
+                                                      'mix_pred_0': 0.4677095702891856,
+                                                      'mix_pred_1': 0.4159351212832052,
+                                                      'mix_pred_2': 0.11635530842760919}},
+                           'perturbed': {'chosen': {1: 31,
+                                                    2: 31,
+                                                    3: 31,
+                                                    4: 31,
+                                                    5: 31,
+                                                    6: 31,
+                                                    7: 31,
+                                                    8: 31},
+                                         'elbo': {1: {29: -3869.520751953125,
+                                                      31: -3869.96728515625,
+                                                      32: -3853.2509765625},
+                                                  2: {29: -3869.9130859375,
+                                                      31: -3868.406494140625,
+                                                      32: -3855.2607421875},
+                                                  3: {29: -3865.77392578125,
+                                                      31: -3870.85693359375,
+                                                      32: -3853.107666015625},
+                                                  4: {29: -3868.890625,
+                                                      31: -3870.6376953125,
+                                                      32: -3853.79345703125},
+                                                  5: {29: -3868.28466796875,
+                                                      31: -3869.883544921875,
+                                                      32: -3855.3505859375},
+                                                  6: {29: -3869.681640625,
+                                                      31: -3868.685546875,
+                                                      32: -3853.76171875},
+                                                  7: {29: -3869.66162109375,
+                                                      31: -3873.4775390625,
+                                                      32: -3853.5634765625},
+                                                  8: {29: -3869.391357421875,
+                                                      31: -3868.60107421875,
+                                                      32: -3853.068115234375}},
+                                         'proportion_divergent': {1: {29: 0.547708308191898,
+                                                                      31: 0.4877104510464018,
+                                                                      32: 0.5377675237900874},
+                                                                  2: {29: 0.5288426057800298,
+                                                                      31: 0.48695065197219195,
+                                                                      32: 0.5434901900235364},
+                                                                  3: {29: 0.5264025352558465,
+                                                                      31: 0.4916019811836578,
+                                                                      32: 0.5377675259903185},
+                                                                  4: {29: 0.5492726236277676,
+                                                                      31: 0.49654087769809374,
+                                                                      32: 0.5377675280668822},
+                                                                  5: {29: 0.5499903114246965,
+                                                                      31: 0.4877104524995966,
+                                                                      32: 0.5377675256994868},
+                                                                  6: {29: 0.5477083096803101,
+                                                                      31: 0.4869506556761432,
+                                                                      32: 0.5377675279369283},
+                                                                  7: {29: 0.5477083099437854,
+                                                                      31: 0.47763083995267824,
+                                                                      32: 0.5377675272492712},
+                                                                  8: {29: 0.5477083085595307,
+                                                                      31: 0.48695065651929276,
+                                                                      32: 0.5377675290560288}},
+                                         'evaluation': {1: {'proportion_cn_correct': 0.0,
+                                                            'proportion_dom_cn_correct': 0.00020279132313722427,
+                                                            'brk_cn_correct_proportion': 0.3395348837209302,
+                                                            'mix_pred_0': 0.4668251872062683,
+                                                            'mix_pred_1': 0.41302239894866943,
+                                                            'mix_pred_2': 0.12015241384506226},
+                                                        2: {'proportion_cn_correct': 0.0,
+                                                            'proportion_dom_cn_correct': 0.00020279132313722427,
+                                                            'brk_cn_correct_proportion': 0.33488372093023255,
+                                                            'mix_pred_0': 0.4674440622329712,
+                                                            'mix_pred_1': 0.40749603509902954,
+                                                            'mix_pred_2': 0.12505990266799927},
+                                                        3: {'proportion_cn_correct': 0.0,
+                                                            'proportion_dom_cn_correct': 0.00020279132313722427,
+                                                            'brk_cn_correct_proportion': 0.3302325581395349,
+                                                            'mix_pred_0': 0.46522486209869385,
+                                                            'mix_pred_1': 0.41064292192459106,
+                                                            'mix_pred_2': 0.12413221597671509},
+                                                        4: {'proportion_cn_correct': 0.0,
+                                                            'proportion_dom_cn_correct': 0.00020279132313722427,
+                                                            'brk_cn_correct_proportion': 0.33488372093023255,
+                                                            'mix_pred_0': 0.481781929731369,
+                                                            'mix_pred_1': 0.4014759063720703,
+                                                            'mix_pred_2': 0.11674218624830246},
+                                                        5: {'proportion_cn_correct': 0.0,
+                                                            'proportion_dom_cn_correct': 0.00020279132313722427,
+                                                            'brk_cn_correct_proportion': 0.3395348837209302,
+                                                            'mix_pred_0': 0.46715790033340454,
+                                                            'mix_pred_1': 0.4127117693424225,
+                                                            'mix_pred_2': 0.12013033777475357},
+                                                        6: {'proportion_cn_correct': 0.0,
+                                                            'proportion_dom_cn_correct': 0.00020279132313722427,
+                                                            'brk_cn_correct_proportion': 0.33488372093023255,
+                                                            'mix_pred_0': 0.46690845489501953,
+                                                            'mix_pred_1': 0.40822145342826843,
+                                                            'mix_pred_2': 0.12487014383077621},
+                                                        7: {'proportion_cn_correct': 0.0,
+                                                            'proportion_dom_cn_correct': 0.00020279132313722427,
+                                                            'brk_cn_correct_proportion': 0.3395348837209302,
+                                                            'mix_pred_0': 0.4589441120624542,
+                                                            'mix_pred_1': 0.4199380576610565,
+                                                            'mix_pred_2': 0.12111779302358627},
+                                                        8: {'proportion_cn_correct': 0.0,
+                                                            'proportion_dom_cn_correct': 0.00020279132313722427,
+                                                            'brk_cn_correct_proportion': 0.33488372093023255,
+                                                            'mix_pred_0': 0.4668024480342865,
+                                                            'mix_pred_1': 0.4083036780357361,
+                                                            'mix_pred_2': 0.12489382922649384}}}}}
+
+
+def per_sample_times(run, tumours):
+    """{step: {sample: seconds}} of a ``run_cli`` run; a call that names
+    no one sample counts under ``all``, but for the fit's, which
+    ``fit_many_cohort`` makes one a tumour in the cohort's order."""
+    out = {}
+    for label, seconds in run['times'].items():
+        names = run['samples'].get(label, [None] * len(seconds))
+        if label == 'fit' and names == [None] * len(tumours):
+            names = sorted(tumours, key=str)
+        step = out.setdefault(label, {})
+        for name, value in zip(names, seconds):
+            step[name or 'all'] = step.get(name or 'all', 0.0) + value
+    return out
+
+
+def split_waves(marks, restarts):
+    """Each fit's wave times from a ``run_cli`` run's marks (the start of
+    each of its ⌈R / WAVE⌉ waves and the end of the last), fits in turn
+    with ``restarts`` restarts."""
+    out, first = [], 0
+    for count in restarts:
+        waves = -(-count // WAVE)
+        out.append(np.diff(marks[first:first + waves + 1]).tolist())
+        first += waves + 1
+    return out
+
+
+def fits_differ(got, ref):
+    """The restarts whose fit results differ in h, ELBO, copy number or
+    breakpoint copy number, bit for bit, between {init_id: fit_results}
+    ``got`` and ``ref``."""
+    if list(got) != list(ref):
+        return ['restarts {} against {}'.format(list(got), list(ref))]
+    differ = []
+    for init_id, want in ref.items():
+        have = got[init_id]
+        same = (np.array_equal(have['h'], want['h'])
+                and have['stats']['elbo'] == want['stats']['elbo']
+                and np.array_equal(have['cn'], want['cn'])
+                and set(have['brk_cn']) == set(want['brk_cn'])
+                and all(np.array_equal(have['brk_cn'][k], v)
+                        for k, v in want['brk_cn'].items()))
+        if not same:
+            differ.append(init_id)
+    return differ
+
+
+def phase_cohort(smi, fixture):
+    """Phase 13: the run CLI with two tumour samples (phase 11's inputs
+    ``fixture``, which hold the second tumour's BAM) to two results
+    stores, one cohort fit on the card; then ``tumour_b``'s grid fitted
+    alone through ``fit_many``, which must equal the cohort's fit of it
+    bit for bit. Returns the run's fb_grouped launches."""
+    import torch
+    from remixt_tpu_torch import config as config_mod
+    from remixt_tpu_torch.analysis import pipeline
+    from remixt_tpu_torch.io.store import read_store
+
+    if COHORT_JAX is None:
+        raise AssertionError('phase 13: COHORT_JAX is not set; run python '
+                             'tests/test_torch_cohort.py --phase13 WORKDIR')
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(here, 'build', 'chip_smoke', 'cohort')
+    t_phase = time.time()
+    reset = host_peak_reset()
+    run = run_cli('phase 13', root, RUN_CHROMOSOMES, RUN_DEPTH,
+                  fixture=fixture, tumours=COHORT)
+    device_gb = torch.cuda.max_memory_allocated() / 1e9
+    log('phase 13: wall s per step and sample: {}'.format(json.dumps({
+        step: {name: round(value, 3) for name, value in samples.items()}
+        for step, samples in per_sample_times(run, COHORT).items()})))
+
+    sweeps = (config_mod.get_param({}, 'num_em_iter')
+              * config_mod.get_param({}, 'num_update_iter'))
+    failures, restarts, expected = [], {}, 0
+    for tumour in COHORT:
+        label = 'phase 13, ' + tumour
+        want = COHORT_JAX[tumour]
+        digest = check_counts_digest(label, os.path.join(
+            run['raw'], 'counts', 'sample_{}.tsv'.format(tumour)),
+            want['counts'])
+        tables = read_store(run['results'][tumour])
+        stats = tables['stats']
+        restarts[tumour] = len(stats['init_id'])
+        if restarts[tumour] != want['restarts']:
+            raise AssertionError('{}: init\'s grid has {} restarts, the JAX '
+                                 'package\'s {}'.format(
+                                     label, restarts[tumour],
+                                     want['restarts']))
+        keys = results_keys(stats)
+        if set(tables) != keys:
+            raise AssertionError('{}: results keys {} missing, {} extra'
+                                 .format(label, sorted(keys - set(tables)),
+                                         sorted(set(tables) - keys)))
+        if not np.all(np.isfinite(stats['elbo'])):
+            raise AssertionError('{}: non-finite ELBO'.format(label))
+        expected += -(-restarts[tumour] // WAVE) * sweeps
+        log('{}: the count table ({} segments, {} reads) is the JAX '
+            'package\'s; results store {}: {} keys, grid of {} restarts, '
+            'ELBOs {:.6g} to {:.6g}'.format(
+                label, digest['rows'], int(digest['floats']['readcount'][0]),
+                os.path.relpath(run['results'][tumour], here), len(tables),
+                restarts[tumour], float(np.min(stats['elbo'])),
+                float(np.max(stats['elbo']))))
+        with open(fixture['mixture_files'][tumour], 'rb') as f:
+            mixture = pickle.load(f)
+        try:
+            check_chosen_restart(label, mixture, tables, want)
+        except AssertionError as error:
+            log('{}: FAILED: {}'.format(label, error))
+            failures.append(str(error))
+    for tumour, waves in zip(COHORT, split_waves(
+            run['marks'], [restarts[t] for t in COHORT])):
+        log('phase 13, {}: fit: {} waves {:.3f} s ({})'.format(
+            tumour, len(waves), sum(waves),
+            json.dumps([round(w, 3) for w in waves])))
+    expect_launches('phase 13', run['launches'], 'fb_grouped', expected)
+    log('phase 13: fb_grouped launches {} = sum over the tumours of '
+        'ceil(restarts / {}) x {} sweeps ({})'.format(
+            expected, WAVE, sweeps, json.dumps(restarts)))
+
+    # the cohort fit adds nothing: tumour_b, fitted second on the card,
+    # fitted again alone
+    tumour = COHORT[-1]
+    config = config_mod.get_sample_config(fixture['config'], tumour)
+    with open(os.path.join(run['raw'], 'experiment',
+                           'sample_{}.pickle'.format(tumour)), 'rb') as f:
+        experiment = pickle.load(f)
+    grid = pipeline.init_tables(experiment, config)[0]
+    reset_chain_launches()
+    t0 = time.time()
+    alone = pipeline.fit_many(experiment, grid, config)
+    torch.cuda.synchronize()
+    refit_s = time.time() - t0
+    expect_launches('phase 13 refit', chain_launches(), 'fb_grouped',
+                    -(-len(grid) // WAVE) * sweeps)
+    fit_dir = os.path.join(run['raw'], 'tmp', 'fit', 'fit_results', tumour)
+    cohort_fits = {}
+    for init_id in grid:
+        with open(os.path.join(fit_dir, 'fit_{}.pickle'.format(init_id)),
+                  'rb') as f:
+            cohort_fits[init_id] = pickle.load(f)
+    differ = fits_differ(alone, cohort_fits)
+    if differ:
+        failures.append('phase 13: {} fitted alone differs from the '
+                        'cohort\'s fit of it in restarts {}'.format(
+                            tumour, differ))
+        log(failures[-1])
+    else:
+        log('phase 13: {} fitted alone ({} restarts, {:.1f} s): h, ELBOs and '
+            'copy number equal to the cohort\'s bit for bit'.format(
+                tumour, len(grid), refit_s))
+    import resource
+    log('phase 13: run CLI {:.1f} s, phase {:.1f} s; max_memory_allocated '
+        '{:.3f} GB; host peak RSS {:.3f} GB ({}; this process\'s rusage '
+        'maximum {:.3f} GB); {}'.format(
+            run['whole'], time.time() - t_phase, device_gb, host_peak_gb(),
+            'since the phase began' if reset else 'of the whole script',
+            resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9,
+            smi))
+    if failures:
+        raise AssertionError('phase 13: {}'.format(failures))
+    return expected
+
+
+def _phase_cohort_child(conn, smi, fixture, start):
+    """Phase 13 in a process of its own; sends ('ok', launches) or
+    ('failed', the error) through ``conn``."""
+    global START
+    START = start
+    try:
+        conn.send(('ok', phase_cohort(smi, fixture)))
+    except BaseException as error:
+        conn.send(('failed', repr(error)))
+        raise
+    finally:
+        conn.close()
+
+
+def start_phase_cohort(smi, fixture):
+    """Start phase 13 in a process of its own (``spawn``), beside the
+    phases that follow in this one, for the script's time limit: its run
+    is host work most of the time, as theirs is. Returns a function that
+    waits for it and returns its fb_grouped launches, or raises."""
+    import multiprocessing
+    context = multiprocessing.get_context('spawn')
+    receiver, sender = context.Pipe(duplex=False)
+    process = context.Process(target=_phase_cohort_child,
+                              args=(sender, smi, fixture, START))
+    process.start()
+    sender.close()
+    log('phase 13: started in process {}, beside phases 11 and 12'.format(
+        process.pid))
+
+    def wait():
+        try:
+            outcome = receiver.recv()
+        except EOFError:
+            outcome = ('failed', 'its process ended without a result')
+        process.join()
+        if outcome[0] != 'ok' or process.exitcode != 0:
+            raise AssertionError('phase 13 failed (exit code {}): {}'.format(
+                process.exitcode, outcome[1]))
+        return outcome[1]
+    return wait
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3681,8 +4772,15 @@ def main():
     grouped['launches'] += accuracy_grouped
     chains['launches'] += accuracy_chains
     phase_float64()
-    grouped['launches'] += phase_run(smi)
+    here = os.path.dirname(os.path.abspath(__file__))
+    fixture = make_cli_inputs(
+        'phases 11 and 13', os.path.join(here, 'build', 'chip_smoke',
+                                         'inputs'),
+        RUN_CHROMOSOMES, RUN_DEPTH, tumour_b=True)
+    phase_cohort_launches = start_phase_cohort(smi, fixture)
+    grouped['launches'] += phase_run(smi, fixture)
     grouped['launches'] += phase_read_benchmark(smi)
+    grouped['launches'] += phase_cohort_launches()
 
     print(smi)
     table = {'kernels': [

@@ -15,9 +15,11 @@ of TSV tables where the store's name does not end in ``.h5``).
 The grid runs through the batched restart fit (``models/fit_batched.py``)
 in padded waves, or one restart at a time through ``BreakpointModel.fit``
 on one shared model (``batch_restarts: false``, a grid of one restart,
-``optimal_initialization``).
+``optimal_initialization``). A cohort of samples is fitted sample by
+sample, one worker thread per device (``fit_many_cohort``).
 """
 
+import contextlib
 import os
 import pickle
 
@@ -234,6 +236,74 @@ def _fit_many_batched(experiment, init_params_dict, config, device):
         results[init_id] = _extract_results(
             model, experiment, init_params_dict[init_id], config)
     return results
+
+
+def cohort_devices(devices=None):
+    """The devices of a cohort fit: ``None`` means every local CUDA
+    device, ``cuda:0`` to ``cuda:{n-1}``, and raises without one."""
+    import torch
+    if devices is None:
+        resolve_device('cuda')
+        return [torch.device('cuda', i)
+                for i in range(torch.cuda.device_count())]
+    devices = [resolve_device(d) for d in devices]
+    if not devices:
+        raise ValueError('a cohort fit needs at least one device')
+    return devices
+
+
+def fit_many_cohort(experiments, init_params_dicts, config, devices=None):
+    """Fit every sample's restart grid, each sample's with its own
+    ``sample_specific`` config through ``fit_many`` on one device.
+
+    This process takes its share of the samples
+    (``parallel.distributed.cohort_partition``). With one sample, one
+    device, ``use_cohort_sharding`` false or the grid not batched
+    (``batch_restarts`` false, or ``optimal_initialization``) they are
+    fitted one after another on the first device. Otherwise they are dealt
+    to the devices in that order, and one worker thread per device fits
+    its samples one after another on it, so no two fits share a device.
+
+    Args:
+        experiments: {sample_id: Experiment}
+        init_params_dicts: {sample_id: {init_id: params dict}}
+        config: config dict overlaying :mod:`remixt_tpu_torch.defaults`
+        devices: torch devices; ``None`` means every local CUDA device
+
+    Returns {sample_id: {init_id: fit_results}} for this process's share,
+    in its order.
+    """
+    import torch
+    from concurrent.futures import ThreadPoolExecutor
+    from remixt_tpu_torch.parallel import distributed
+
+    get = lambda name: remixt_tpu_torch.config.get_param(config, name)
+    sample_ids = distributed.cohort_partition(list(experiments))
+    devices = cohort_devices(devices)
+
+    def fit_samples(share, device):
+        context = (torch.cuda.device(device) if device.type == 'cuda'
+                   else contextlib.nullcontext())
+        with context:
+            return {sid: fit_many(
+                experiments[sid], init_params_dicts[sid],
+                remixt_tpu_torch.config.get_sample_config(config, sid),
+                device=device) for sid in share}
+
+    batched = get('batch_restarts') and not config.get(
+        'optimal_initialization', False)
+    if len(sample_ids) <= 1 or len(devices) <= 1 or not batched or \
+            not get('use_cohort_sharding'):
+        return fit_samples(sample_ids, devices[0])
+
+    workers = min(len(devices), len(sample_ids))
+    with ThreadPoolExecutor(max_workers=workers) as pool:
+        futures = [pool.submit(fit_samples, sample_ids[i::workers],
+                               devices[i]) for i in range(workers)]
+        fitted = {}
+        for future in futures:
+            fitted.update(future.result())
+    return {sid: fitted[sid] for sid in sample_ids}
 
 
 def build_model(experiment, init_params, config, device=None):

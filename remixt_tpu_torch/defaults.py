@@ -148,3 +148,8 @@ restart_chunk_size = 8
 # it as the normal-depth anchor of the restart grid; 0 anchors the smallest
 # mode alone
 normal_mode_mass_tolerance = 0.05
+
+# Fit a multi-sample cohort with one worker thread per local CUDA device,
+# each fitting its share of the samples one after another; false fits the
+# samples one after another on the first device
+use_cohort_sharding = True

@@ -44,7 +44,8 @@ import torch
 
 from remixt_tpu_torch.ops import fb_grouped
 
-#: launches of the CUDA kernels (one launch runs both directions)
+#: launches of the CUDA kernels (one launch runs both directions), counted
+#: under ``fb_grouped.COUNT_LOCK``
 LAUNCHES = 0
 LAUNCHES_SCALED = 0
 
@@ -194,10 +195,11 @@ def launcher(frames, static_exp, be_exp, chain_bank_idx, cluster=None,
         if err != 0:
             raise RuntimeError('fb_chains{} kernel launch failed: {}'.format(
                 '_scaled' if scaled else '', err_string(err).decode()))
-        if scaled:
-            LAUNCHES_SCALED += 1
-        else:
-            LAUNCHES += 1
+        with fb_grouped.COUNT_LOCK:
+            if scaled:
+                LAUNCHES_SCALED += 1
+            else:
+                LAUNCHES += 1
     # the prepared tensors live as long as the launch can run
     run.inputs = args
     return run, (alphas, betas)

@@ -42,6 +42,7 @@ takes ``cluster=`` too.
 
 import ctypes
 import os
+import threading
 
 import torch
 
@@ -53,9 +54,11 @@ TINY = 1e-37
 #: the switch the JAX package reads); ``scaled=None`` means this at call time
 SCALED_LINEAR = os.environ.get('REMIXT_TPU_SCALED_LINEAR', '0') == '1'
 
-#: launches of the CUDA kernels (one launch runs both directions)
+#: launches of the CUDA kernels (one launch runs both directions); the
+#: cohort fit's worker threads count under ``COUNT_LOCK``
 LAUNCHES = 0
 LAUNCHES_SCALED = 0
+COUNT_LOCK = threading.Lock()
 
 #: thread blocks per (chain, direction, restart tile) cluster of both
 #: kernels on the main path
@@ -320,10 +323,11 @@ def _launch(scaled, frames, static_exp, be_exp_b, chain_bank_idx,
     if err != 0:
         raise RuntimeError('fb_grouped{} kernel launch failed: {}'.format(
             '_scaled' if scaled else '', err_string(err).decode()))
-    if scaled:
-        LAUNCHES_SCALED += 1
-    else:
-        LAUNCHES += 1
+    with COUNT_LOCK:
+        if scaled:
+            LAUNCHES_SCALED += 1
+        else:
+            LAUNCHES += 1
     return alphas, betas
 
 

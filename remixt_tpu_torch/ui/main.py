@@ -3,8 +3,8 @@
     python3 -m remixt_tpu_torch.ui.main fit counts.tsv breakpoints.tsv \\
         results.h5 work/ [--config config.yaml] [--min_length L]
     python3 -m remixt_tpu_torch.ui.main run ref_data/ raw/ breakpoints.tsv \\
-        --tumour_sample_ids t --tumour_bam_files t.bam \\
-        --results_files results.h5 \\
+        --tumour_sample_ids t [t2 ...] --tumour_bam_files t.bam [t2.bam ...] \\
+        --results_files results.h5 [results2.h5 ...] \\
         [--normal_sample_id n --normal_bam_file n.bam] [--config c.yaml]
     python3 -m remixt_tpu_torch.ui.main write_results results.h5 cn.tsv \\
         brk_cn.tsv meta.yaml [--max_ploidy P] [--min_ploidy P] \\

@@ -4,8 +4,10 @@ Counterpart of ``remixt_tpu/ui/run.py``. Extraction, genotyping, phasing
 (``shapeit4``, ``bingraphsample``, ``bcftools``, ``bgzip`` and ``tabix``
 on the PATH), counting and the GC and mappability bias run on the host;
 the fit of the restart grid runs on ``device`` (``None`` means CUDA, and
-the run raises when it reaches the fit without one). A rerun in the same
-raw data directory skips the tasks done there. One tumour sample a run.
+the run raises when it reaches the fit without one). Several tumour samples
+of one patient share the normal's genotypes and the phasing, and their
+fits run as one cohort fit, one sample after another on each local CUDA
+device. A rerun in the same raw data directory skips the tasks done there.
 """
 
 import remixt_tpu_torch.workflow

@@ -5,10 +5,11 @@ the composed seqdata and BAM pipelines of ``run``.
 Counterpart of ``remixt_tpu/workflow.py`` on the port's make-style
 scheduler. Chromosomes and samples fan out as independent tasks; every
 task but the fit is host numpy and C++, and the fit task reaches the
-device through ``fit_many(..., device)``. Seqdata stores are HDF5 files
-where h5py is installed, else directories (``io/store.store_name``). The
-ploidy plots are not made (they need matplotlib), and one tumour sample is
-fitted per run: a cohort fit is not ported.
+device through ``fit_many(..., device)``, or, for a run of several
+tumour samples, one cohort fit task through ``fit_many_cohort(...,
+devices)``. Seqdata stores are HDF5 files where h5py is installed, else
+directories (``io/store.store_name``). The ploidy plots are not made (they
+need matplotlib).
 """
 
 import os
@@ -93,6 +94,93 @@ def fit_all_restarts(fit_results_dir, experiment_filename, init_params, config,
             pickle.dump(fit_results, f)
         fit_results_filenames[init_id] = results_filename
     return fit_results_filenames
+
+
+def create_fit_cohort_workflow(experiment_filenames, results_filenames,
+                               config, ref_data_dir, tempdir, device=None):
+    """The fit of several samples: each sample's ``init`` with its config,
+    one ``fit_cohort`` task fitting every sample's grid
+    (``pipeline.fit_many_cohort`` on ``device``: ``None`` means every local
+    CUDA device, one device or a list of devices), then each sample's
+    ``collate``. ``ref_data_dir`` is unused, as in the JAX package. The
+    fit task declares no outputs: on a rerun the scheduler skips it by its
+    done sentinel and its return pickle, which holds the names of the
+    pickled fit results."""
+    workflow = Workflow('fit_cohort')
+
+    init_results_files = {}
+    init_rets = {}
+    for sample_id, experiment_filename in experiment_filenames.items():
+        sample_config = remixt_tpu_torch.config.get_sample_config(
+            config, sample_id)
+        init_results_files[sample_id] = _temp(
+            tempdir, 'init_results_{}'.format(sample_id) + (
+                '.h5' if store.is_hdf5(results_filenames[sample_id])
+                else ''))
+        init_rets[sample_id] = workflow.transform(
+            'init_{}'.format(sample_id),
+            pipeline.init,
+            args=(init_results_files[sample_id], experiment_filename,
+                  sample_config),
+            inputs=[experiment_filename],
+            outputs=[init_results_files[sample_id]],
+        )
+
+    fit_results_dir = os.path.dirname(_temp(tempdir, 'fit_results', 'x'))
+    fit_ret = workflow.transform(
+        'fit_cohort',
+        fit_cohort_restarts,
+        args=(fit_results_dir, dict(experiment_filenames), init_rets,
+              config),
+        kwargs={'device': device},
+        inputs=list(experiment_filenames.values()),
+    )
+
+    for sample_id, experiment_filename in experiment_filenames.items():
+        workflow.transform(
+            'collate_{}'.format(sample_id),
+            pipeline.collate,
+            args=(results_filenames[sample_id], experiment_filename,
+                  init_results_files[sample_id], fit_ret[sample_id],
+                  remixt_tpu_torch.config.get_sample_config(
+                      config, sample_id)),
+            inputs=[experiment_filename, init_results_files[sample_id]],
+            outputs=[results_filenames[sample_id]],
+        )
+    return workflow
+
+
+def fit_cohort_restarts(fit_results_dir, experiment_filenames,
+                        init_params_per_sample, config, device=None):
+    """Fit every sample's grid (``pipeline.fit_many_cohort`` on
+    ``device``: ``None`` means every local CUDA device, one device a list
+    of that one) and pickle each restart's results under
+    ``<sample>/fit_<init_id>.pickle``.
+
+    Returns {sample_id: {init_id: results filename}}.
+    """
+    experiments = {}
+    for sample_id, filename in experiment_filenames.items():
+        with open(filename, 'rb') as f:
+            experiments[sample_id] = pickle.load(f)
+
+    if device is not None and not isinstance(device, (list, tuple)):
+        device = [device]
+    all_results = pipeline.fit_many_cohort(
+        experiments, init_params_per_sample, config, devices=device)
+
+    out = {}
+    for sample_id, sample_results in all_results.items():
+        sample_dir = os.path.join(fit_results_dir, str(sample_id))
+        os.makedirs(sample_dir, exist_ok=True)
+        out[sample_id] = {}
+        for init_id, fit_results in sample_results.items():
+            results_filename = os.path.join(
+                sample_dir, 'fit_{}.pickle'.format(init_id))
+            with open(results_filename, 'wb') as f:
+                pickle.dump(fit_results, f)
+            out[sample_id][init_id] = results_filename
+    return out
 
 
 def create_extract_seqdata_workflow(bam_filename, seqdata_filename, config,
@@ -318,16 +406,14 @@ def create_remixt_seqdata_workflow(breakpoint_filename, seqdata_filenames,
                                    config, ref_data_dir, normal_id=None,
                                    device=None):
     """seqdata → results: segments, haplotypes, counts, bias, the
-    experiment and the fit of the one tumour sample on ``device``
-    (``None`` means CUDA). More than one tumour sample raises
-    ``NotImplementedError``: the cohort fit is not ported."""
+    experiments, and the fit: one tumour sample's through its own fit
+    workflow on ``device`` (``None`` means CUDA), several tumour samples'
+    through one cohort fit on ``device`` (``None`` means every local CUDA
+    device). The tasks and their names are the JAX package's, so the
+    scheduler runs them in its order: each tumour's ``sample_gc`` draws
+    from numpy's global state where the JAX package's does."""
     tumour_ids = [sample_id for sample_id in seqdata_filenames
                   if sample_id != normal_id]
-    if len(tumour_ids) > 1:
-        raise NotImplementedError(
-            'a run of {} tumour samples needs the cohort fit, which is not '
-            'ported (ROADMAP.md, Queue 1 item 10); run each tumour sample '
-            'with the normal on its own'.format(len(tumour_ids)))
 
     segment_filename = os.path.join(raw_data_directory, 'segments.tsv')
     haplotypes_filename = os.path.join(raw_data_directory, 'haplotypes.tsv')
@@ -383,11 +469,23 @@ def create_remixt_seqdata_workflow(breakpoint_filename, seqdata_filenames,
             outputs=[experiment_file],
         )
 
+    # several tumour samples: one cohort fit; one keeps its own fit
+    if len(tumour_ids) > 1:
         workflow.subworkflow(
-            'fit_model_{}'.format(tumour_id), create_fit_model_workflow(
-                experiment_file, results_filenames[tumour_id], config,
-                ref_data_dir, os.path.join(tempdir, 'fit', str(tumour_id)),
-                tumour_id=tumour_id, device=device))
+            'fit_cohort_workflow', create_fit_cohort_workflow(
+                {tid: experiment_template.format(tumour_id=tid)
+                 for tid in tumour_ids},
+                {tid: results_filenames[tid] for tid in tumour_ids},
+                config, ref_data_dir, os.path.join(tempdir, 'fit'),
+                device=device))
+    else:
+        for tumour_id in tumour_ids:
+            workflow.subworkflow(
+                'fit_model_{}'.format(tumour_id), create_fit_model_workflow(
+                    experiment_template.format(tumour_id=tumour_id),
+                    results_filenames[tumour_id], config, ref_data_dir,
+                    os.path.join(tempdir, 'fit', str(tumour_id)),
+                    tumour_id=tumour_id, device=device))
     return workflow
 
 
@@ -395,7 +493,8 @@ def create_remixt_bam_workflow(breakpoint_filename, bam_filenames,
                                results_filenames, raw_data_directory, config,
                                ref_data_dir, normal_id=None, device=None):
     """BAM → results: extraction of every sample, then the seqdata
-    pipeline, the fit on ``device`` (``None`` means CUDA)."""
+    pipeline, the fit on ``device`` (``None`` means CUDA: the one device,
+    or every local one for a cohort of tumour samples)."""
     tempdir = os.path.join(raw_data_directory, 'tmp')
     os.makedirs(raw_data_directory, exist_ok=True)
 

@@ -74,7 +74,7 @@ def main(argv=None):
             'whole genome read benchmark',
             os.path.join(here, 'build', 'whole_genome_reads'), chromosomes,
             args.h_total, N=args.segments)
-        counts = run['counts']
+        counts, results = run['counts'], run['results']
         inputs = dict(h_total=args.h_total, simulated_segments=args.segments,
                       inputs_s=run['fixture']['times'])
     else:
@@ -83,6 +83,7 @@ def main(argv=None):
                          chromosomes, {'tumour': args.tumour_depth,
                                        'normal': args.normal_depth})
         counts = os.path.join(run['raw'], 'counts', 'sample_tumour.tsv')
+        results = run['results']['tumour']
         inputs = dict(depths=dict(tumour=args.tumour_depth,
                                   normal=args.normal_depth),
                       pairs=run['fixture']['pairs'],
@@ -90,7 +91,7 @@ def main(argv=None):
     device_gb = torch.cuda.max_memory_allocated() / 1e9
     cs.log_run_steps('whole genome', run)
 
-    stats = read_store(run['results'], keys=['stats'])['stats']
+    stats = read_store(results, keys=['stats'])['stats']
     if not np.all(np.isfinite(stats['elbo'])):
         raise AssertionError('non-finite ELBO')
     sweeps = (config_mod.get_param({}, 'num_em_iter')

@@ -122,7 +122,14 @@ def test_results_layout_matches(results):
 
 
 def test_results_values_match(results):
-    ref, got = read(results['files']['jax']), read(results['files']['torch'])
+    assert_stores_match(results['files']['jax'], results['files']['torch'])
+
+
+def assert_stores_match(jax_file, torch_file):
+    """Every table of the port's results store ``torch_file`` against the
+    JAX package's ``jax_file``, at the tolerances above."""
+    ref, got = read(jax_file), read(torch_file)
+    assert list(got) == list(ref)
     stats = ref['/stats']
     params = [c for c in stats.columns if c.startswith(
         ('negbin', 'betabin', 'hdel', 'loh', 'p_outlier', 'r_', 'M_'))]
