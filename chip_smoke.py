@@ -52,6 +52,21 @@ Phases, in order; any failure exits non-zero:
 5. Where the time goes: the batched fit once more (1 EM × 2 VI) under
    ``torch.profiler``: the device's busy share, device time per fit stage,
    and the kernels with the most device time.
+5b. The measurement tools of ``remixt_tpu_torch/tools`` through their
+   ``main(argv)`` on phase 2's problem (N=6000, 300 events, S=355, 23
+   chains; each tool builds it anew), their JSON under
+   ``build/chip_smoke/tools/``: (a) ``sweep_budget`` at R=8 and at one
+   restart: each sweep part's device time by the engine's named ranges,
+   the block's wall and device time; all seven parts must show device
+   time, the parts and the unattributed time must sum to the block's
+   device time within 1 %, and the chain update a sweep must take at least
+   0.75 × phase 2's ``fb_grouped`` (R=8) or phase 2b's ``fb_chains`` (one
+   restart) time; (b) ``fit_budget --trace``: one batched EM iteration's
+   device time by its 13 ranges; (c) ``fit_budget``: the phase timings of
+   the single and the batched fit; (d) ``probe_restart_scaling`` at
+   ``PROBE_WAVES`` and its optimal wave; (e) ``profile_engine`` on the
+   single-restart sweep and ``summarize_trace --top 10`` of its trace.
+   The chain kernels' launches of 5b count into the kernel table's.
 6. The single-restart path at full width: the sequential ``fit_many``
    (``batch_restarts: false``) over the first 2 restarts of phase 3's grid,
    2 EM × 2 VI. Checks finite ELBOs, the copy number's shape, and that every
@@ -245,6 +260,11 @@ JAX_F32_VS_F64_FIT = dict(posterior_max_abs_diff=3.2e-3,
 F64_SCAN_BAR = 1e-9
 KERNELS_VS_SCAN_BAR = 1e-3
 DECODE_DISAGREEMENT_BAR = 1e-2
+# phase 5b: the sweep's parts (the engine's ranges less their prefix) and
+# the probe's wave sizes
+SWEEP_PARTS = ('emissions', 'p_allele_swap', 'be_bank', 'p_cn_chain',
+               'p_breakpoint', 'p_outlier_total', 'p_outlier_allele')
+PROBE_WAVES = (1, 8, 16, 24, 48)
 
 
 START = time.time()
@@ -1132,12 +1152,18 @@ def phase_profile(data):
         for module, name, fn in originals:
             setattr(module, name, fn)
 
-    # device activity: kernels, copies and sets, not the stage annotations
-    # the profiler mirrors onto the device timeline
+    # device activity: kernels, copies and sets, not the annotations the
+    # profiler mirrors onto the device timeline (the stage labels and the
+    # model's own ranges)
+    ranges = eng.SWEEP_RANGES + em.EM_RANGES
+
+    def annotation(name, event):
+        return (name.startswith('stage:') or name in ranges
+                or getattr(event, 'is_user_annotation', False))
+
     intervals = sorted(
         (e.time_range.start, e.time_range.end) for e in prof.events()
-        if e.device_type == DeviceType.CUDA
-        and not e.name.startswith('stage:'))
+        if e.device_type == DeviceType.CUDA and not annotation(e.name, e))
     busy, end = 0.0, -np.inf
     for s, e in intervals:
         if e > end:
@@ -1171,10 +1197,137 @@ def phase_profile(data):
                                 row.cpu_time_total / 1e3,
                                 device_us(row) / 1e3))
     kernels = [r for r in rows if r.device_type == DeviceType.CUDA
-               and not r.key.startswith('stage:')]
+               and not annotation(r.key, r)]
     for row in sorted(kernels, key=self_device_us, reverse=True)[:8]:
         log('phase 5: kernel {:<56.56s} calls {:6d}  device {:8.2f} ms'
             .format(row.key, row.count, self_device_us(row) / 1e3))
+
+
+def run_tool(out_dir, label, name, argv):
+    """``remixt_tpu_torch.tools.<name>.main(argv)`` with its stdout in
+    ``<label>.log`` under ``out_dir``; returns what main returned."""
+    module = importlib.import_module('remixt_tpu_torch.tools.' + name)
+    t0 = time.time()
+    with open(os.path.join(out_dir, label + '.log'), 'w') as f, \
+            contextlib.redirect_stdout(f):
+        out = module.main(argv)
+    log('phase 5b: {} {} took {:.1f} s'.format(name, ' '.join(argv),
+                                               time.time() - t0))
+    return out
+
+
+def check_sweep_budget(out, kernel, kernel_ms):
+    """Phase 5b (a)'s gates on one ``sweep_budget`` output."""
+    R = out['restarts']
+    missing = [c for c in SWEEP_PARTS if out[c + '_ms_per_block'] <= 0]
+    if missing:
+        raise AssertionError('phase 5b: R={}: no device time under {}'
+                             .format(R, missing))
+    parts = (out['sum_components_ms_per_block']
+             + out['unattributed_ms_per_block'])
+    if abs(parts - out['block_device_ms']) > 0.01 * out['block_device_ms']:
+        raise AssertionError(
+            'phase 5b: R={}: parts {:.3f} + unattributed {:.3f} ms against '
+            'the block\'s {:.3f} ms'.format(
+                R, out['sum_components_ms_per_block'],
+                out['unattributed_ms_per_block'], out['block_device_ms']))
+    if out['p_cn_chain_ms_per_sweep'] < 0.75 * kernel_ms:
+        raise AssertionError(
+            'phase 5b: R={}: the chain update {:.3f} ms a sweep is under '
+            '0.75 x {}\'s {:.3f} ms'.format(
+                R, out['p_cn_chain_ms_per_sweep'], kernel, kernel_ms))
+
+
+def phase_tools(grouped_ms, chains_ms):
+    """The measurement tools at full width through their ``main(argv)``;
+    returns the ``fb_grouped`` and ``fb_chains`` launches they made."""
+    import torch
+    here = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(here, 'build', 'chip_smoke', 'tools')
+    os.makedirs(out_dir, exist_ok=True)
+    width = ['--n', str(N_FULL), '--events', str(EVENTS_FULL)]
+
+    def out_file(label):
+        return ['--out', os.path.join(out_dir, label + '.json')]
+
+    torch.cuda.empty_cache()
+    reset_chain_launches()
+    t0 = time.time()
+    # (a) a sweep's parts, a wave and one restart
+    for R, kernel, kernel_ms in ((WAVE, 'fb_grouped', grouped_ms),
+                                 (0, 'fb_chains', chains_ms)):
+        label = 'sweep_budget_R{}'.format(R)
+        out = run_tool(out_dir, label, 'sweep_budget', width + [
+            '--restarts', str(R), '--iters', '5'] + out_file(label))
+        log('phase 5b: sweep_budget --restarts {}: device ms a sweep by '
+            'range {}'.format(R, json.dumps(
+                {c: out[c + '_ms_per_sweep'] for c in SWEEP_PARTS})))
+        log('phase 5b: sweep_budget --restarts {}: the 5-sweep block: wall '
+            '{:.3f} ms, device {:.3f} ms (the device busy {:.1%} of the '
+            'wall), in the ranges {:.3f} ms, unattributed {:.3f} ms'.format(
+                R, out['block_wall_ms'], out['block_device_ms'],
+                out['block_device_ms'] / out['block_wall_ms'],
+                out['sum_components_ms_per_block'],
+                out['unattributed_ms_per_block']))
+        check_sweep_budget(out, kernel, kernel_ms)
+        log('phase 5b: sweep_budget --restarts {}: the chain update {:.3f} '
+            'ms a sweep, {} alone {:.3f} ms'.format(
+                R, out['p_cn_chain_ms_per_sweep'], kernel, kernel_ms))
+
+    # (b) one batched EM iteration by range
+    out = run_tool(out_dir, 'fit_budget_trace', 'fit_budget', width + [
+        '--trace', '--restarts', str(WAVE), '--iters', '3']
+        + out_file('fit_budget_trace'))
+    log('phase 5b: fit_budget --trace, one batched EM iteration (R={}, {} '
+        'VI sweeps): wall {:.3f} ms, device {:.3f} ms ({:.1%})'.format(
+            WAVE, 5, out['em_iter_wall_ms'], out['em_iter_device_ms'],
+            out['em_iter_device_ms'] / out['em_iter_wall_ms']))
+    log('phase 5b: fit_budget --trace: device ms by range ' + json.dumps(
+        {k[:-3]: v for k, v in out.items() if k.endswith('_ms')
+         and not k.startswith('em_iter_')}))
+
+    # (c) the phase timings
+    out = run_tool(out_dir, 'fit_budget', 'fit_budget', width + [
+        '--restarts', str(WAVE), '--iters', '3'] + out_file('fit_budget'))
+    log('phase 5b: fit_budget: ' + json.dumps(
+        {k: v for k, v in out.items() if k.endswith(('_s', '_ms'))}))
+
+    # (d) the restart axis
+    rows = run_tool(out_dir, 'probe_restart_scaling',
+                    'probe_restart_scaling',
+                    width + ['--iters', '2']
+                    + out_file('probe_restart_scaling')
+                    + [str(r) for r in PROBE_WAVES])
+    for row in rows:
+        log('phase 5b: probe_restart_scaling ' + json.dumps(row))
+
+    # (e) the single-restart sweep's profile
+    trace_dir = os.path.join(out_dir, 'profile_engine')
+    out = run_tool(out_dir, 'profile_engine', 'profile_engine',
+                   width + ['--outdir', trace_dir])
+    log('phase 5b: profile_engine, one restart: {:.3f} ms a sweep ({:.0f} '
+        'segments/s) under the profiler'.format(out['ms_per_sweep'],
+                                                out['segments_per_s']))
+    kind, total, top = run_tool(out_dir, 'summarize_trace',
+                                'summarize_trace',
+                                [trace_dir, '--top', '10'])
+    if kind != 'device':
+        raise AssertionError('phase 5b: the single-restart trace holds no '
+                             'device event')
+    log('phase 5b: summarize_trace --top 10: device total {:.1f} us over '
+        '5 sweeps'.format(total))
+    for name, us, n in top:
+        log('phase 5b:   {:10.1f} us {:5.1f} % {:6d}  {}'.format(
+            us, 100 * us / total, n, name[:90]))
+
+    launches = chain_launches()
+    if (launches['fb_grouped_scaled'] or launches['fb_chains_scaled']
+            or not launches['fb_grouped'] or not launches['fb_chains']):
+        raise AssertionError('phase 5b: chain kernel launches {}'.format(
+            launches))
+    log('phase 5b: chain kernel launches {}; the phase took {:.1f} s'.format(
+        json.dumps(launches), time.time() - t0))
+    return launches['fb_grouped'], launches['fb_chains']
 
 
 def phase_small_f32_vs_f64():
@@ -4760,8 +4913,11 @@ def main():
     grouped['launches'], batched_results = phase_fit(data)
     phase_small_f32_vs_f64()
     phase_profile(data)
+    tools_grouped, tools_chains = phase_tools(grouped['ms'], chains['ms'])
+    grouped['launches'] += tools_grouped
     chains['launches'], sequential_results = phase_sequential_fit(
         data, batched_results)
+    chains['launches'] += tools_chains
     scaled_launches = phase_scaled_fits(data, batched_results,
                                         sequential_results)
     grouped_scaled['launches'] = scaled_launches['fb_grouped_scaled']

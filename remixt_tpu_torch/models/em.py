@@ -19,6 +19,11 @@ are calls of the batched ones with a batch of one and a list of one RNG,
 so both fits draw the same subsamples. ``update_h`` (scipy's L-BFGS-B),
 ``update_param`` (one parameter's grid zoom) and ``param_sample_weights``
 (one parameter's weights) are the JAX package's stepwise alternatives.
+
+The fused updates' parts run inside ``torch.profiler.record_function``
+ranges named as the JAX package's ``jax.named_scope`` (``EM_RANGES``),
+disjoint siblings that enclose their Python loops whole
+(``tools/fit_budget.py``).
 """
 
 import logging
@@ -26,6 +31,7 @@ import logging
 import numpy as np
 import scipy.optimize
 import torch
+from torch.profiler import record_function
 
 from remixt_tpu_torch.models import engine as eng
 
@@ -39,6 +45,10 @@ GRID_LEVELS = 3
 # h update: outer ascent iterations, backtracking scales per iteration
 H_OUTER = 12
 H_SCALES = 8
+
+# the profiler ranges of the M-step's parts
+EM_RANGES = ('em_h_search', 'em_h_full_guard', 'em_running_components',
+             'em_grid_zoom', 'em_candidate_guard', 'em_elbo_assembly')
 
 
 def sample_size_for(num_segments):
@@ -60,30 +70,31 @@ def _h_update(spec, params_b, state_b, idx):
     halvings = 0.5 ** torch.arange(H_SCALES, dtype=dtype, device=h.device)
     rows = torch.arange(h.shape[0], device=h.device)
 
-    for _ in range(H_OUTER):
-        h_leaf = h.clone().requires_grad_(True)
-        with torch.enable_grad():
-            val = eng.expected_log_likelihood_indexed(
-                spec, params_b._replace(h=h_leaf), state_b, idx)
-            (g,) = torch.autograd.grad(val.sum(), h_leaf)
-        val = val.detach()
-        with torch.no_grad():
-            gnorm = torch.linalg.norm(g, dim=-1) + 1e-12
-            hnorm = torch.linalg.norm(h, dim=-1) + 1e-12
-            scales = rel_step[:, None] * halvings                 # (R, 8)
-            step = (hnorm / gnorm)[:, None, None] * g[:, None, :]
-            cands = torch.clamp(h[:, None, :] + scales[..., None] * step,
-                                1e-8, 10.0)                       # (R, 8, M)
-            vals = eng.expected_log_likelihood_indexed(
-                spec, params_b._replace(h=cands), state_b, idx, extra=1)
-            best = torch.argmax(vals, dim=-1)
-            improved = vals[rows, best] > val
-            h = torch.where(improved[:, None], cands[rows, best], h)
-            rel_step = torch.where(
-                improved, torch.clamp(scales[rows, best] * 2.0, max=1.0),
-                rel_step * (0.5 ** H_SCALES))
+    with record_function('em_h_search'):
+        for _ in range(H_OUTER):
+            h_leaf = h.clone().requires_grad_(True)
+            with torch.enable_grad():
+                val = eng.expected_log_likelihood_indexed(
+                    spec, params_b._replace(h=h_leaf), state_b, idx)
+                (g,) = torch.autograd.grad(val.sum(), h_leaf)
+            val = val.detach()
+            with torch.no_grad():
+                gnorm = torch.linalg.norm(g, dim=-1) + 1e-12
+                hnorm = torch.linalg.norm(h, dim=-1) + 1e-12
+                scales = rel_step[:, None] * halvings             # (R, 8)
+                step = (hnorm / gnorm)[:, None, None] * g[:, None, :]
+                cands = torch.clamp(h[:, None, :] + scales[..., None] * step,
+                                    1e-8, 10.0)                   # (R, 8, M)
+                vals = eng.expected_log_likelihood_indexed(
+                    spec, params_b._replace(h=cands), state_b, idx, extra=1)
+                best = torch.argmax(vals, dim=-1)
+                improved = vals[rows, best] > val
+                h = torch.where(improved[:, None], cands[rows, best], h)
+                rel_step = torch.where(
+                    improved, torch.clamp(scales[rows, best] * 2.0, max=1.0),
+                    rel_step * (0.5 ** H_SCALES))
 
-    with torch.no_grad():
+    with torch.no_grad(), record_function('em_h_full_guard'):
         both = torch.stack([h, params_b.h], dim=1)                # (R, 2, M)
         full = eng.expected_log_likelihood_restarts(
             spec, params_b._replace(h=both), state_b, extra=1)
@@ -129,11 +140,12 @@ def _params_update(spec, params_b, state_b, names, bounds, sample_idxs):
     rows = torch.arange(params_b.h.shape[0], device=device)
 
     running = {}
-    for half, n_comp in (('total', 2), ('allele', 4)):
-        vals = eng.expected_log_likelihood_components(
-            spec, params_b, state_b, half, tuple(range(n_comp)))
-        for c, v in enumerate(vals):
-            running[(half, c)] = v
+    with record_function('em_running_components'):
+        for half, n_comp in (('total', 2), ('allele', 4)):
+            vals = eng.expected_log_likelihood_components(
+                spec, params_b, state_b, half, tuple(range(n_comp)))
+            for c, v in enumerate(vals):
+                running[(half, c)] = v
 
     accepts = []
     for i, name in enumerate(names):
@@ -144,25 +156,28 @@ def _params_update(spec, params_b, state_b, names, bounds, sample_idxs):
         lo = torch.full_like(current, lo_c)
         hi = torch.full_like(current, hi_c)
         best = current
-        for _ in range(GRID_LEVELS):
-            values = lo[:, None] + (hi - lo)[:, None] * grid01   # (R, 20)
-            objs = eng.expected_log_likelihood_indexed(
-                spec, params_b._replace(**{name: values}), state_b, sub_idx,
-                extra=1)
-            best = values[rows, torch.argmax(objs, dim=-1)]
-            step = (hi - lo) / (GRID_POINTS - 1)
-            lo = torch.clamp(best - step, min=lo_c)
-            hi = torch.clamp(best + step, max=hi_c)
+        with record_function('em_grid_zoom'):
+            for _ in range(GRID_LEVELS):
+                values = lo[:, None] + (hi - lo)[:, None] * grid01  # (R, 20)
+                objs = eng.expected_log_likelihood_indexed(
+                    spec, params_b._replace(**{name: values}), state_b,
+                    sub_idx, extra=1)
+                best = values[rows, torch.argmax(objs, dim=-1)]
+                step = (hi - lo) / (GRID_POINTS - 1)
+                lo = torch.clamp(best - step, min=lo_c)
+                hi = torch.clamp(best + step, max=hi_c)
 
-        cand_vals = eng.expected_log_likelihood_components(
-            spec, params_b._replace(**{name: best}), state_b, half, comps)
-        cand_sum = sum(cand_vals)
-        run_sum = sum(running[(half, c)] for c in comps)
-        accept = cand_sum >= run_sum
-        params_b = params_b._replace(
-            **{name: torch.where(accept, best, current)})
-        for c, v in zip(comps, cand_vals):
-            running[(half, c)] = torch.where(accept, v, running[(half, c)])
+        with record_function('em_candidate_guard'):
+            cand_vals = eng.expected_log_likelihood_components(
+                spec, params_b._replace(**{name: best}), state_b, half, comps)
+            cand_sum = sum(cand_vals)
+            run_sum = sum(running[(half, c)] for c in comps)
+            accept = cand_sum >= run_sum
+            params_b = params_b._replace(
+                **{name: torch.where(accept, best, current)})
+            for c, v in zip(comps, cand_vals):
+                running[(half, c)] = torch.where(accept, v,
+                                                 running[(half, c)])
         accepts.append(accept)
 
     halves = (running[('total', 0)] + running[('total', 1)],
@@ -186,7 +201,7 @@ def update_params_fused_batched(spec, params_b, state_b, names, bounds, rngs,
     params_b, accepts, (tot_b, alle_b) = _params_update(
         spec, params_b, state_b, tuple(names), bounds,
         torch.as_tensor(idxs, device=spec.device))
-    with torch.no_grad():
+    with torch.no_grad(), record_function('em_elbo_assembly'):
         elbo_b = eng.calculate_elbo_from_halves_restarts(
             spec, params_b, state_b, tot_b, alle_b)
     return params_b, accepts, elbo_b

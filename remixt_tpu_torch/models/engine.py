@@ -25,6 +25,11 @@ factored state space and transition banks, written for PyTorch.
   the kernel, CPU tensors take its plain version), or the plain scan of
   ``ops/fb_scan.py``, the JAX package's XLA scan, under the log-space bank.
   A float64 engine takes the scan by default, on every device.
+* Each part of a sweep runs inside a ``torch.profiler.record_function``
+  range named as the JAX engine's ``jax.named_scope`` (``SWEEP_RANGES``),
+  disjoint siblings, so a profile splits a sweep by part
+  (``tools/sweep_budget.py``). A range launches nothing and synchronises
+  nothing.
 
 Emission special cases (hdel / LOH / masks / zero-count segments) are
 encoded as boolean planes with double-``where`` guards, so
@@ -35,12 +40,18 @@ from typing import Any, NamedTuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from remixt_tpu_torch.device import resolve_device
 from remixt_tpu_torch.models import states as states_mod
 from remixt_tpu_torch.ops import fb_chains, fb_grouped, fb_scan
 from remixt_tpu_torch.ops.special import (
     exp_normalize, lgamma_shift, plogp)
+
+# the profiler ranges of a sweep's parts, in sweep order
+SWEEP_RANGES = ('sweep_emissions', 'sweep_p_allele_swap', 'sweep_be_bank',
+                'sweep_p_cn_chain', 'sweep_p_breakpoint',
+                'sweep_p_outlier_total', 'sweep_p_outlier_allele')
 
 
 class Params(NamedTuple):
@@ -844,22 +855,29 @@ def update_p_outlier_allele_restarts(spec, state_b, ll_alle):
 
 
 def _sweep_restarts_with_emissions(spec, params_b, state_b, ll_tot, ll_alle):
-    state_b = update_p_allele_swap_restarts(spec, state_b, ll_alle)
+    with record_function('sweep_p_allele_swap'):
+        state_b = update_p_allele_swap_restarts(spec, state_b, ll_alle)
     # one exp-space breakend bank per sweep, shared by the chain update and
     # the breakpoint update (the chain ran under exactly these potentials)
-    be_exp_b = breakend_tmats_exp(spec, state_b.p_breakpoint)
-    state_b = update_p_cn_restarts(spec, params_b, state_b, ll_tot, ll_alle,
-                                   be_exp_b)
-    state_b = update_p_breakpoint_restarts(spec, state_b, be_exp_b)
+    with record_function('sweep_be_bank'):
+        be_exp_b = breakend_tmats_exp(spec, state_b.p_breakpoint)
+    with record_function('sweep_p_cn_chain'):
+        state_b = update_p_cn_restarts(spec, params_b, state_b, ll_tot,
+                                       ll_alle, be_exp_b)
+    with record_function('sweep_p_breakpoint'):
+        state_b = update_p_breakpoint_restarts(spec, state_b, be_exp_b)
     del be_exp_b
-    state_b = update_p_outlier_total_restarts(spec, state_b, ll_tot)
-    return update_p_outlier_allele_restarts(spec, state_b, ll_alle)
+    with record_function('sweep_p_outlier_total'):
+        state_b = update_p_outlier_total_restarts(spec, state_b, ll_tot)
+    with record_function('sweep_p_outlier_allele'):
+        return update_p_outlier_allele_restarts(spec, state_b, ll_alle)
 
 
 @torch.no_grad()
 def variational_sweeps_restarts(spec, params_b, state_b, num_sweeps):
     """``num_sweeps`` restart-batched VI sweeps, emissions computed once."""
-    ll_tot, ll_alle = emission_tensors(spec, params_b)
+    with record_function('sweep_emissions'):
+        ll_tot, ll_alle = emission_tensors(spec, params_b)
     for _ in range(num_sweeps):
         state_b = _sweep_restarts_with_emissions(
             spec, params_b, state_b, ll_tot, ll_alle)
@@ -922,13 +940,20 @@ def update_p_outlier_allele(spec, params, state, ll_alle):
 
 
 def _sweep_with_emissions(spec, params, state, ll_tot, ll_alle):
-    state = update_p_allele_swap(spec, params, state, ll_alle)
-    be_exp = breakend_tmats_exp(spec, state.p_breakpoint[None])[0]
-    state = update_p_cn(spec, params, state, ll_tot, ll_alle, be_exp=be_exp)
-    state = update_p_breakpoint(spec, params, state, exp_tm_used=be_exp)
+    with record_function('sweep_p_allele_swap'):
+        state = update_p_allele_swap(spec, params, state, ll_alle)
+    with record_function('sweep_be_bank'):
+        be_exp = breakend_tmats_exp(spec, state.p_breakpoint[None])[0]
+    with record_function('sweep_p_cn_chain'):
+        state = update_p_cn(spec, params, state, ll_tot, ll_alle,
+                            be_exp=be_exp)
+    with record_function('sweep_p_breakpoint'):
+        state = update_p_breakpoint(spec, params, state, exp_tm_used=be_exp)
     del be_exp
-    state = update_p_outlier_total(spec, params, state, ll_tot)
-    return update_p_outlier_allele(spec, params, state, ll_alle)
+    with record_function('sweep_p_outlier_total'):
+        state = update_p_outlier_total(spec, params, state, ll_tot)
+    with record_function('sweep_p_outlier_allele'):
+        return update_p_outlier_allele(spec, params, state, ll_alle)
 
 
 @torch.no_grad()
@@ -941,7 +966,8 @@ def variational_sweep(spec, params, state):
 @torch.no_grad()
 def variational_sweeps(spec, params, state, num_sweeps):
     """``num_sweeps`` VI sweeps of one restart, emissions computed once."""
-    ll_tot, ll_alle = emission_tensors(spec, one(params))
+    with record_function('sweep_emissions'):
+        ll_tot, ll_alle = emission_tensors(spec, one(params))
     for _ in range(num_sweeps):
         state = _sweep_with_emissions(spec, params, state, ll_tot[0],
                                       ll_alle[0])

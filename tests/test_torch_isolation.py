@@ -4,8 +4,8 @@ PyYAML, networkx or matplotlib (which the GPU machine may lack); no source
 of the port, of ``chip_smoke.py`` or of ``run_whole_genome.py`` imports
 JAX, the JAX package, pandas or scikit-learn, nor h5py, PyYAML or networkx
 outside a function; and the
-entry points refuse to fall back to the CPU when no CUDA device was asked
-for and none exists."""
+entry points, the measurement tools among them, refuse to fall back to the
+CPU when no CUDA device was asked for and none exists."""
 
 import os
 import pkgutil
@@ -37,6 +37,7 @@ def test_importing_every_module_loads_no_jax():
     assert 'remixt_tpu_torch.models.engine' in modules
     assert 'remixt_tpu_torch.ops.fb_grouped' in modules
     assert 'remixt_tpu_torch.ops.fb_chains' in modules
+    assert 'remixt_tpu_torch.tools.sweep_budget' in modules
     code = (
         'import importlib, sys\n'
         'for name in {!r}:\n'
@@ -163,3 +164,22 @@ def test_model_spec_without_device_raises_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match='CUDA'):
         engine.ModelSpec(**kwargs)
     assert engine.ModelSpec(device='cpu', **kwargs).device.type == 'cpu'
+
+
+@pytest.mark.parametrize('tool, argv', [
+    ('sweep_budget', []), ('sweep_budget', ['--standalone']),
+    ('fit_budget', []), ('fit_budget', ['--trace']),
+    ('probe_restart_scaling', ['8']),
+    ('profile_engine', ['--outdir', 'trace'])])
+def test_measurement_tools_without_device_raise_without_cuda(
+        monkeypatch, tmp_path, tool, argv):
+    """The measurement tools without ``--device`` raise before they build
+    their problem or write anything."""
+    import importlib
+
+    module = importlib.import_module('remixt_tpu_torch.tools.' + tool)
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match='CUDA'):
+        module.main(['--n', '30', '--events', '2'] + argv)
+    assert os.listdir(tmp_path) == []
