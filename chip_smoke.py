@@ -2335,20 +2335,24 @@ RUN_JAX = {'counts': {'rows': 551,
                                             'mix_pred_1': 0.28120675683021545,
                                             'mix_pred_2': 0.18948835134506226}}}}
 
-STANDIN_TOOLS = ('bgzip', 'tabix', 'bcftools', 'shapeit4', 'bingraphsample')
+STANDIN_TOOLS = ('bgzip', 'tabix', 'bcftools', 'shapeit4', 'bingraphsample',
+                 'shapeit')
 STANDIN_SOURCE = r"""
 # A stand-in for the phasing tools of the run path (bgzip, tabix, bcftools,
-# shapeit4, bingraphsample), for a synthetic sample whose true phase the
-# reference directory's panel file holds. It implements only the calls
-# that remixt_tpu_torch/analysis/haplotype.py makes. Its "BCF" files are
-# plain-text VCF; its phasings are the true phase with switches drawn at
-# every SWITCH_EVERY-th het site with probability SWITCH_RATE.
+# shapeit4 and bingraphsample for GRCh38, shapeit for GRCh37), for a
+# synthetic sample whose true phase the reference directory's truth file
+# (TRUTH) holds. It implements only the calls that
+# remixt_tpu_torch/analysis/haplotype.py makes. Its "BCF" files are
+# plain-text VCF and its shapeit graph a text file of its own; its phasings
+# are the true phase with switches drawn at every SWITCH_EVERY-th het site
+# with probability SWITCH_RATE.
 import gzip
 import os
 import random
 import sys
 
 SWITCH_EVERY, SWITCH_RATE = @SWITCH_EVERY@, @SWITCH_RATE@
+TRUTH = '@TRUTH@'
 
 
 def lines(path):
@@ -2368,6 +2372,70 @@ def records(path):
 
 def option(args, name):
     return args[args.index(name) + 1]
+
+
+def read_truth(path):
+    truth = {}
+    for line in lines(path):
+        position, allele1 = line.split('\t')[:2]
+        truth[position] = allele1
+    return truth
+
+
+def shapeit_graph(args):
+    # -M map -R haplotypes legend sample -G gen sample --output-graph graph
+    # [--chrX] --no-mcmc -L log --seed s: the inputs must exist, as shapeit
+    # needs them; the graph holds each .gen row with the genotype called,
+    # the true first allele of a het row and whether a switch may fall there
+    inputs = [option(args, '-M')]
+    inputs += args[args.index('-R') + 1:args.index('-R') + 4]
+    inputs += args[args.index('-G') + 1:args.index('-G') + 3]
+    missing = [path for path in inputs if not os.path.exists(path)]
+    if missing:
+        sys.exit('shapeit stand-in: no such file {}'.format(missing))
+    gen = [line.split(' ') for line in lines(option(args, '-G'))]
+    if not gen:
+        sys.exit('shapeit stand-in: no SNP in the .gen file')
+    ref_dir = os.path.dirname(os.path.dirname(option(args, '-R')))
+    truth = read_truth(TRUTH.format(ref_dir=ref_dir, chromosome=gen[0][0]))
+    with open(option(args, '--output-graph'), 'w') as f:
+        het = 0
+        for row in gen:
+            genotype = row[5:8].index('1')
+            weak = 0
+            if genotype == 1:
+                weak = int(het % SWITCH_EVERY == SWITCH_EVERY - 1)
+                het += 1
+            f.write(' '.join(row[:5] + [str(genotype),
+                                        truth.get(row[2], '0'),
+                                        str(weak)]) + '\n')
+    with open(option(args, '-L'), 'w') as f:
+        f.write('shapeit stand-in ' + ' '.join(args) + '\n')
+
+
+def shapeit_convert(args):
+    # -convert --input-graph graph --output-sample prefix --seed s -L log:
+    # writes prefix.haps (chromosome id position a0 a1 allele1 allele2,
+    # no header), prefix.sample and the log, as shapeit2 lays them out
+    rng = random.Random(int(option(args, '--seed')))
+    prefix = option(args, '--output-sample')
+    flip, rows = 0, []
+    for line in lines(option(args, '--input-graph')):
+        chrom, name, pos, a0, a1, genotype, allele1, weak = line.split(' ')
+        if genotype == '1':
+            if weak == '1' and rng.random() < SWITCH_RATE:
+                flip ^= 1
+            h1 = int(allele1) ^ flip
+            h2 = 1 - h1
+        else:
+            h1 = h2 = int(genotype) // 2
+        rows.append(' '.join([chrom, name, pos, a0, a1, str(h1), str(h2)]))
+    with open(prefix + '.haps', 'w') as f:
+        f.writelines(row + '\n' for row in rows)
+    with open(prefix + '.sample', 'w') as f:
+        f.write('ID_1 ID_2 missing\n0 0 0\nUNR1 UNR1 0\n')
+    with open(option(args, '-L'), 'w') as f:
+        f.write('shapeit stand-in ' + ' '.join(args) + '\n')
 
 
 def write_vcf(path, rows):
@@ -2395,10 +2463,7 @@ def main(tool, args):
                   if not a.startswith('-') and args[i - 1] not in ('-O', '-o')]
         write_vcf(option(args, '-o'), records(source[0]))
     elif tool == 'shapeit4':
-        truth = {}
-        for line in lines(option(args, '--reference')):
-            position, allele1 = line.split('\t')[:2]
-            truth[position] = allele1
+        truth = read_truth(option(args, '--reference'))
         with open(option(args, '--bingraph'), 'w') as f:
             for i, row in enumerate(records(option(args, '--input'))):
                 weak = int(i % SWITCH_EVERY == SWITCH_EVERY - 1)
@@ -2415,6 +2480,10 @@ def main(tool, args):
             rows.append([chrom, pos, name, ref, alt, '.', '.', '.', 'GT',
                          '{}|{}'.format(a1, 1 - a1)])
         write_vcf(option(args, '--output'), rows)
+    elif tool == 'shapeit' and args[0] == '-convert':
+        shapeit_convert(args)
+    elif tool == 'shapeit' and '--output-graph' in args:
+        shapeit_graph(args)
     else:
         sys.exit('stand-in {}: unsupported call {}'.format(tool, args))
 
@@ -2429,7 +2498,8 @@ def write_standin_tools(bin_dir):
     os.makedirs(bin_dir, exist_ok=True)
     source = '#!{} -S\n'.format(sys.executable) + STANDIN_SOURCE.replace(
         '@SWITCH_EVERY@', str(SWITCH_EVERY)).replace(
-            '@SWITCH_RATE@', str(SWITCH_RATE))
+            '@SWITCH_RATE@', str(SWITCH_RATE)).replace(
+                '@TRUTH@', panel_truth_path('{ref_dir}', '{chromosome}'))
     for tool in STANDIN_TOOLS:
         path = os.path.join(bin_dir, tool)
         with open(path, 'w') as f:
@@ -2545,9 +2615,12 @@ def write_bam(path, chromosome_lengths, record_batches):
 
 
 def panel_truth_path(ref_dir, chromosome):
-    """The GRCh38 panel file of a chromosome, where the stand-in phasing
-    tools read the sample's true phase: lines of position (1-based) and the
-    alt flag of each haplotype."""
+    """The file where the stand-in phasing tools read the sample's true
+    phase on a chromosome, for either build: lines of position (1-based)
+    and the alt flag of each haplotype. It lies under the name of the
+    chromosome's GRCh38 panel file, which shapeit4's stand-in is given as
+    the panel; shapeit's stand-in finds it in the reference directory, the
+    parent of the impute2 panel's directory."""
     return os.path.join(ref_dir, '1kGP_high_coverage_Illumina.chr{}.'
                         'filtered.SNV_INDEL_SV_phased_panel.bcf'.format(
                             chromosome))
@@ -2639,13 +2712,19 @@ def write_reference(ref_dir, chromosome_lengths, rng, with_hdf5):
 def write_impute_panel(panel_dir, chromosome, positions, a0, a1,
                        num_haplotypes, rng):
     """A synthetic 1000 Genomes impute2 panel of one chromosome under the
-    default names (``legend_template``, ``haplotypes_template`` with
-    ``panel_dir`` as the panel directory): a gzipped legend (id position
-    a0 a1) and a gzipped ``.hap`` of ``num_haplotypes`` 0/1 columns drawn
-    from ``rng`` at an alternate allele frequency per row uniform in
-    [0.05, 0.5]."""
+    default names (``legend_template``, ``haplotypes_template`` and
+    ``genetic_map_template`` with ``panel_dir`` as the panel directory): a
+    gzipped legend (id position a0 a1), a gzipped ``.hap`` of
+    ``num_haplotypes`` 0/1 columns drawn from ``rng`` at an alternate
+    allele frequency per row uniform in [0.05, 0.5], and a genetic map at
+    every 100th position at 1 cM/Mb."""
     import gzip
     os.makedirs(panel_dir, exist_ok=True)
+    with open(os.path.join(panel_dir, 'genetic_map_chr{}_combined_b37.txt'
+                           .format(chromosome)), 'w') as f:
+        f.write('position COMBINED_rate(cM/Mb) Genetic_Map(cM)\n')
+        f.writelines('{} 1.0 {!r}\n'.format(p, p / 1e6)
+                     for p in positions[::100].tolist())
     stem = os.path.join(panel_dir, 'ALL_1000G_phase1integrated_v3_chr{}_'
                         'impute'.format(chromosome))
     with gzip.open(stem + '.legend.gz', 'wt', compresslevel=1) as f:
@@ -2661,6 +2740,16 @@ def write_impute_panel(panel_dir, chromosome, positions, a0, a1,
     grid[:, -1] = ord('\n')
     with gzip.open(stem + '.hap.gz', 'wb', compresslevel=1) as f:
         f.write(grid.tobytes())
+
+
+def write_panel_sample(panel_dir, num_haplotypes):
+    """The impute2 panel's sample file under the default name
+    (``sample_template``): one individual for every two haplotypes."""
+    with open(os.path.join(panel_dir, 'ALL_1000G_phase1integrated_v3.sample'),
+              'w') as f:
+        f.write('ID POP GROUP SEX\n')
+        f.writelines('SIM{} SIM SIM {}\n'.format(i, 1 + i % 2)
+                     for i in range(num_haplotypes // 2))
 
 
 def write_mappability(stem, mappable, with_hdf5):
@@ -3291,6 +3380,9 @@ def phase_run(smi, fixture):
 READ_H_TOTAL = 0.02
 # haplotypes of each chromosome's synthetic impute2 panel, and its seed
 PANEL_HAPLOTYPES, PANEL_SEED = 40, 13
+# the build of phase 12's reference: the read benchmark's germline comes
+# from the GRCh37 impute2 panel, and its sample is phased through shapeit2
+READ_GENOME_VERSION = 'GRCh37'
 # the one simulation of benchmark/sim_defs.yaml
 READ_SIM_ID = 'test_proportion_subclonal_0_0'
 # the read benchmark's own steps, timed with those of the run from seqdata
@@ -3301,10 +3393,14 @@ READ_STEPS = (
     ('simulations.pipeline', 'simulate_tumour_data', 'tumour reads'),
     ('simulations.pipeline', 'evaluate_results_task', 'evaluate'),
 ) + RUN_STEPS[2:]
-# what the JAX package makes of phase 12's inputs on the CPU
-# (``python tests/test_torch_read_benchmark.py --phase12 WORKDIR``): the
-# digests of its simulated seqdata (``seqdata_digest``) and count table
-# (``count_table_digest``), then what ``RUN_JAX`` holds of its fit
+# what the JAX package makes of phase 12's inputs on the CPU, on the
+# GRCh37 reference (``python tests/test_torch_read_benchmark.py --phase12
+# WORKDIR``): the digests of its simulated seqdata (``seqdata_digest``) and
+# count table (``count_table_digest``), then what ``RUN_JAX`` holds of its
+# fit. The GRCh38 route gives the same values: the stand-ins draw the same
+# switches at the same het sites from the same seeds, so the blocks differ
+# only in their labels and in which allele each block calls first, which
+# the allele counts' phasing across samples does not see.
 READ_JAX = {'seqdata': {'normal': {'fragments': {'rows': 6498399,
                                                  'fragment_id': 'a504ea286409ff17',
                                                  'start': 'ec8036d810f5c9ac',
@@ -3640,27 +3736,33 @@ def read_sim_defs(chromosome_lengths, h_total, N=None, overrides=None):
 
 
 def make_read_fixture(root, chromosome_lengths, h_total, N=None,
-                      with_hdf5=False, sim_overrides=None):
+                      with_hdf5=False, sim_overrides=None,
+                      genome_version=READ_GENOME_VERSION):
     """The read benchmark's inputs, made from seeds: phase 11's synthetic
     reference with an impute2 panel per chromosome at its SNPs
-    (``PANEL_HAPLOTYPES`` haplotypes), the sim defs of ``read_sim_defs``
-    (with ``sim_overrides``) and the config as files. Returns
-    dict(ref_data_dir, sim_defs, config, config_file, times)."""
+    (``PANEL_HAPLOTYPES`` haplotypes, with the panel's sample file and
+    genetic maps), the sim defs of ``read_sim_defs`` (with
+    ``sim_overrides``) and the config, on the build ``genome_version``, as
+    files. Returns dict(ref_data_dir, sim_defs, config, config_file,
+    times)."""
     ref_dir = os.path.join(root, 'ref')
+    panel_dir = os.path.join(ref_dir, 'ALL_1000G_phase1integrated_v3_impute')
     t0 = time.time()
     truth = write_reference(ref_dir, chromosome_lengths,
                             np.random.RandomState(RUN_SEED), with_hdf5)
     panel_rng = np.random.RandomState(PANEL_SEED)
     for chrom, (bases, _, positions, alt, _) in truth.items():
         write_impute_panel(
-            os.path.join(ref_dir, 'ALL_1000G_phase1integrated_v3_impute'),
-            chrom, positions + 1, list(bases[positions].tobytes().decode()),
+            panel_dir, chrom, positions + 1,
+            list(bases[positions].tobytes().decode()),
             list(alt.tobytes().decode()), PANEL_HAPLOTYPES, panel_rng)
+    write_panel_sample(panel_dir, PANEL_HAPLOTYPES)
     sim_defs = read_sim_defs(chromosome_lengths, h_total, N, sim_overrides)
     sim_defs_file = os.path.join(root, 'sim_defs.yaml')
     with open(sim_defs_file, 'w') as f:
         json.dump(sim_defs, f)
-    config = reference_config(ref_dir, chromosome_lengths)
+    config = dict(reference_config(ref_dir, chromosome_lengths),
+                  ensembl_genome_version=genome_version)
     config_file = os.path.join(root, 'config.yaml')
     with open(config_file, 'w') as f:
         json.dump(config, f)
@@ -3828,10 +3930,36 @@ def results_cli(label, results, out_dir):
     return {'write_results': t_write, 'visualize_solutions': t_report}
 
 
+def check_shapeit2_phasing(label, sim_dir, chromosomes):
+    """That the run phased every chromosome through shapeit's stand-in:
+    one shapeit graph a chromosome, made with the reference's seed, and no
+    shapeit4 graph. Returns the graphs' count."""
+    graphs, bingraphs = [], []
+    for directory, _, files in os.walk(sim_dir):
+        if 'phased.hgraph' in files:
+            graphs.append(os.path.join(directory, 'phased.hgraph'))
+        if 'phasing.bingraph' in files:
+            bingraphs.append(os.path.join(directory, 'phasing.bingraph'))
+    if len(graphs) != len(chromosomes) or bingraphs:
+        raise AssertionError('{}: {} shapeit graphs and {} shapeit4 graphs '
+                             'for {} chromosomes'.format(
+                                 label, len(graphs), len(bingraphs),
+                                 len(chromosomes)))
+    for path in graphs:
+        with open(path + '.log') as f:
+            argv = f.read()
+        if not argv.startswith('shapeit stand-in -M ') or \
+                not argv.rstrip().endswith('--seed 12345'):
+            raise AssertionError('{}: {} is not the shapeit graph call: '
+                                 '{}'.format(label, path, argv))
+    return len(graphs)
+
+
 def phase_read_benchmark(smi):
-    """Phase 12: the read benchmark over RUN_CHROMOSOMES at READ_H_TOTAL,
-    the fit on the card, then the results CLI on its results store.
-    Returns the fb_grouped launches."""
+    """Phase 12: the read benchmark over RUN_CHROMOSOMES at READ_H_TOTAL on
+    a GRCh37 reference (READ_GENOME_VERSION), phased through shapeit's
+    stand-in, the fit on the card, then the results CLI on its results
+    store. Returns the fb_grouped launches."""
     import torch
     from remixt_tpu_torch import config as config_mod
     from remixt_tpu_torch.io.store import read_store
@@ -3847,6 +3975,14 @@ def phase_read_benchmark(smi):
     run = read_benchmark('phase 12', root, RUN_CHROMOSOMES, READ_H_TOTAL)
     device_gb = torch.cuda.max_memory_allocated() / 1e9
     log_run_steps('phase 12', run)
+    build = run['fixture']['config']['ensembl_genome_version']
+    graphs = check_shapeit2_phasing('phase 12', run['sim_dir'],
+                                    RUN_CHROMOSOMES)
+    log('phase 12: phased through the shapeit stand-in '
+        '(ensembl_genome_version {}): {} graphs, {} draws each; phasing '
+        '{:.1f} s of the read benchmark\'s {:.1f} s; {}'.format(
+            build, graphs, config_mod.get_param({}, 'shapeit_num_samples'),
+            sum(run['times']['phase']), run['whole'], smi))
 
     for sample, path in run['seqdata'].items():
         digest = seqdata_digest(path)
@@ -3892,12 +4028,13 @@ def phase_read_benchmark(smi):
                                  'row of {}'.format(name))
     cli_times = results_cli('phase 12', run['results'],
                             os.path.join(root, 'results_cli'))
-    log('phase 12: read benchmark {:.1f} s, results CLI {:.1f} s, phase '
-        '{:.1f} s; max_memory_allocated {:.3f} GB; host peak RSS {:.3f} GB '
-        '({}); {}'.format(run['whole'], sum(cli_times.values()),
-                          time.time() - t_phase, device_gb, host_peak_gb(),
-                          'since the phase began' if reset else
-                          'of the whole script', smi))
+    log('phase 12 ({}): read benchmark {:.1f} s, results CLI {:.1f} s, '
+        'phase {:.1f} s; max_memory_allocated {:.3f} GB; host peak RSS '
+        '{:.3f} GB ({}); {}'.format(
+            build, run['whole'], sum(cli_times.values()),
+            time.time() - t_phase, device_gb, host_peak_gb(),
+            'since the phase began' if reset else 'of the whole script',
+            smi))
     return expected
 
 

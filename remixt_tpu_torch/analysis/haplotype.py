@@ -1,22 +1,25 @@
 """Haplotype inference: SNP genotyping, phasing, block allele counting
 (numpy).
 
-Counterpart of the GRCh38 route of ``remixt_tpu/analysis/haplotype.py``:
+Counterpart of ``remixt_tpu/analysis/haplotype.py``:
 
 * genotyping: binomial-posterior calls from the normal, or pooled one-sided
   binomial tail tests across tumours;
-* phasing: ``shapeit4`` builds a phasing graph of the het SNPs against the
-  1000 Genomes panel and ``bingraphsample`` draws phasings from it, driven
-  through ``subprocess`` with ``bgzip``, ``tabix`` and ``bcftools``, as the
-  JAX package drives them; the draws' consensus makes confidence-thresholded
-  haplotype blocks;
+* phasing, driven through ``subprocess`` as the JAX package drives it, by
+  the genome build (``ensembl_genome_version``):
+
+  - GRCh38: ``shapeit4`` builds a phasing graph of the het SNPs against the
+    1000 Genomes high-coverage panel and ``bingraphsample`` draws phasings
+    from it, with ``bgzip``, ``tabix`` and ``bcftools``;
+  - GRCh37: ``shapeit2`` (the ``shapeit`` binary) builds a haplotype graph
+    of the called SNPs against the 1000 Genomes phase 1 impute2 panel
+    (legend, haplotypes, sample file and genetic map) and ``shapeit
+    -convert`` draws phasings from it;
+
+  the draws' consensus makes confidence-thresholded haplotype blocks;
 * block allele counting (one SNP vote per fragment, the first matching
   allele row in seqdata order) and the phasing of blocks into alleles a/b
   across samples.
-
-GRCh37 phasing through ``shapeit2`` is not ported (``ROADMAP.md``, Queue
-1, "GRCh37 phasing"): ``infer_haps`` raises ``NotImplementedError`` for
-it.
 """
 
 import os
@@ -28,6 +31,7 @@ import scipy.stats
 import remixt_tpu_torch.config
 from remixt_tpu_torch import segalg, seqdataio
 from remixt_tpu_torch.io.table import Table, read_tsv, write_tsv
+from remixt_tpu_torch.simulations.haplotype import read_legend
 
 HAPS_COLUMNS = ['chromosome', 'position', 'allele', 'hap_label', 'allele_id']
 ALLELE_COUNT_COLUMNS = ['start', 'end', 'hap_label', 'allele_id',
@@ -177,6 +181,14 @@ def _haplotype_blocks(fraction_changepoint, block_break, threshold):
     }
 
 
+def _flips(allele):
+    """1.0 where a draw's phase flips from the het SNP before, 0.0 at the
+    first."""
+    flips = np.abs(np.diff(allele.astype(float), prepend=np.nan))
+    flips[:1] = 0.0
+    return flips
+
+
 SITE_KEY = ['chromosome', 'position', 'ref', 'alt']
 
 
@@ -198,8 +210,7 @@ def calculate_haplotypes(phasing_samples, changepoint_threshold=0.95):
         elif not all(len(a) == len(b) and np.array_equal(a, b)
                      for a, b in zip(sites, keys)):
             raise ValueError('phasing samples phase different het sites')
-        flips = np.abs(np.diff(het['allele1'].astype(float), prepend=np.nan))
-        flips[:1] = 0.0
+        flips = _flips(het['allele1'])
         fraction_sum = flips if fraction_sum is None else fraction_sum + flips
         num_samples += 1
 
@@ -416,20 +427,198 @@ def infer_haps_grch38_shapeit4(haps_filename, snp_genotype_filename,
     write_tsv(haps.select(HAPS_COLUMNS), haps_filename)
 
 
+# ---------------------------------------------------------------------------
+# GRCh37: shapeit2
+# ---------------------------------------------------------------------------
+
+SHAPEIT2_BASES = ('A', 'C', 'T', 'G')
+SHAPEIT2_SAMPLE = 'ID_1 ID_2 missing sex\n0 0 0 0\nUNR1 UNR1 0 2\n'
+
+
+def _stage_shapeit2_inputs(snp_genotype_filename, legend_filename,
+                           chromosome, temp_directory):
+    """Write the .gen and .sample inputs of shapeit2: one .gen row for each
+    legend row with single-base A/C/G/T alleles at the position of a called
+    genotype (homozygous calls too), in legend order. Returns their paths,
+    or (None, None) when no row is staged."""
+    genotypes = read_tsv(snp_genotype_filename)
+    if len(genotypes) == 0:
+        return None, None
+    calls = np.stack([genotypes[g].astype(np.int64)
+                      for g in ('AA', 'AB', 'BB')], axis=1)
+    called = (calls == 1).any(axis=1)
+
+    position, a0, a1 = read_legend(legend_filename)
+    snp = np.isin(a0, SHAPEIT2_BASES) & np.isin(a1, SHAPEIT2_BASES)
+    position, a0, a1 = position[snp], a0[snp], a1[snp]
+
+    # an inner merge on position: every legend row, in legend order, with
+    # the called row at its position
+    legend_row, called_row = _match_rows(
+        position, genotypes['position'][called].astype(np.int64))
+    if len(legend_row) == 0:
+        return None, None
+    calls = calls[called][called_row]
+
+    gen_filename = os.path.join(temp_directory, 'snps.gen')
+    with open(gen_filename, 'w') as f:
+        f.writelines(
+            '{c} {c}:{p} {p} {a} {b} {aa} {ab} {bb}\n'.format(
+                c=chromosome, p=p, a=a, b=b, aa=aa, ab=ab, bb=bb)
+            for p, a, b, (aa, ab, bb) in zip(
+                position[legend_row].tolist(), a0[legend_row],
+                a1[legend_row], calls.tolist()))
+
+    sample_filename = os.path.join(temp_directory, 'snps.sample')
+    with open(sample_filename, 'w') as f:
+        f.write(SHAPEIT2_SAMPLE)
+    return gen_filename, sample_filename
+
+
+def _sample_shapeit2_phasing(hgraph_filename, sample_prefix, seed,
+                             max_attempts=3):
+    """One phasing draw from the shapeit2 haplotype graph, retried up to
+    ``max_attempts`` times on a failed call (shapeit occasionally crashes
+    while sampling). Returns (position, allele1) of its het rows, in the
+    draw's order, and removes the draw's files."""
+    log_filename = sample_prefix + '.log'
+    for _ in range(max_attempts):
+        try:
+            _run('shapeit', '-convert', '--input-graph', hgraph_filename,
+                 '--output-sample', sample_prefix,
+                 '--seed', str(seed), '-L', log_filename)
+            break
+        except subprocess.CalledProcessError:
+            print('failed sampling with seed {}, retrying'.format(seed))
+    else:
+        raise RuntimeError('failed to sample {} times with seed {}'.format(
+            max_attempts, seed))
+
+    # id id2 position ref alt allele1 allele2, no header
+    draw = np.loadtxt(sample_prefix + '.haps', dtype=np.int64, delimiter=' ',
+                      usecols=(2, 5, 6), ndmin=2)
+    het = draw[:, 1] != draw[:, 2]
+
+    for suffix in ('.log', '.haps', '.sample'):
+        os.remove(sample_prefix + suffix)
+    return draw[het, 0], draw[het, 1]
+
+
+def _flip_sum(draws):
+    """The flips of the draws ((position, allele1) each) summed by position.
+
+    Draws that phase the same het positions in the same order, as draws
+    from one graph do, add row by row. Where two draws' het positions
+    differ, the sum is the JAX code's sum of position-indexed series: the
+    sorted union of the positions, NaN where a draw lacks one (such a
+    position then splits no block); a position repeated in either draw
+    raises ``ValueError``."""
+    positions, total = None, None
+    for position, allele in draws:
+        flips = _flips(allele)
+        if total is None:
+            positions, total = position, flips
+        elif len(position) == len(positions) and \
+                np.array_equal(position, positions):
+            total = total + flips
+        else:
+            if len(np.unique(position)) != len(position) or \
+                    len(np.unique(positions)) != len(positions):
+                raise ValueError('phasing draws with repeated positions '
+                                 'phase different het sites')
+            union = np.union1d(positions, position)
+            summed = np.full(len(union), np.nan)
+            summed[np.searchsorted(union, positions)] = total
+            aligned = np.full(len(union), np.nan)
+            aligned[np.searchsorted(union, position)] = flips
+            positions, total = union, summed + aligned
+    return total
+
+
+def infer_haps_grch37_shapeit2(haps_filename, snp_genotype_filename,
+                               chromosome, temp_directory, config,
+                               ref_data_dir):
+    """GRCh37 phasing: a shapeit2 haplotype graph of the called SNPs,
+    ``shapeit_num_samples`` draws from it, and blocks where the draws'
+    flips agree, written as the haps table. Autosomes are phased, and X
+    (through the panel chromosome ``phased_chromosome_x``) when
+    ``is_female``; any other chromosome, or one with no staged SNP, gets
+    null haps."""
+    phasable = [str(a) for a in range(1, 23)] + ['X']
+    if str(chromosome) not in phasable or (
+            chromosome == 'X' and not _param(config, 'is_female')):
+        _write_null_haps(haps_filename)
+        return
+
+    os.makedirs(temp_directory, exist_ok=True)
+
+    panel_chromosome = chromosome
+    if chromosome == 'X':
+        panel_chromosome = _param(config, 'phased_chromosome_x')
+    legend_filename = _ref_file(config, ref_data_dir, 'legend',
+                                chromosome=panel_chromosome)
+
+    gen_filename, sample_filename = _stage_shapeit2_inputs(
+        snp_genotype_filename, legend_filename, chromosome, temp_directory)
+    if gen_filename is None:
+        _write_null_haps(haps_filename)
+        return
+
+    hgraph_filename = os.path.join(temp_directory, 'phased.hgraph')
+    _run('shapeit',
+         '-M', _ref_file(config, ref_data_dir, 'genetic_map',
+                         chromosome=panel_chromosome),
+         '-R', _ref_file(config, ref_data_dir, 'haplotypes',
+                         chromosome=panel_chromosome),
+         legend_filename,
+         _ref_file(config, ref_data_dir, 'sample'),
+         '-G', gen_filename, sample_filename,
+         '--output-graph', hgraph_filename,
+         '--chrX' if chromosome == 'X' else '',
+         '--no-mcmc', '-L', hgraph_filename + '.log', '--seed', '12345')
+
+    num_samples = _param(config, 'shapeit_num_samples')
+    draws = [_sample_shapeit2_phasing(
+        hgraph_filename,
+        os.path.join(temp_directory, 'sampled.{}'.format(seed)), seed)
+        for seed in range(num_samples)]
+    flip_sum = _flip_sum(draws)
+    position, allele = draws[-1]
+    if len(flip_sum) != len(position):
+        raise ValueError('the flip sum has {} positions, the last draw {}'
+                         .format(len(flip_sum), len(position)))
+
+    blocks = _haplotype_blocks(flip_sum / float(num_samples),
+                               np.zeros(len(flip_sum), dtype=bool),
+                               _param(config, 'shapeit_confidence_threshold'))
+
+    # the alleles are the last draw's; the labels count the low-confidence
+    # positions up to and including each, one above the 0-based labels of
+    # _haplotype_blocks, as the JAX package numbers them
+    haps = _stack_allele_rows(Table([
+        ('chromosome', np.array([chromosome] * len(position), dtype=object)),
+        ('position', position),
+        ('allele1', allele),
+        ('allele2', 1 - allele),
+        ('hap_label', blocks['hap_label'] + 1),
+    ]))
+    haps = haps.take(np.lexsort((haps['allele_id'], haps['position'])))
+    write_tsv(haps.select(HAPS_COLUMNS), haps_filename)
+
+
 def infer_haps(haps_filename, snp_genotype_filename, chromosome,
                temp_directory, config, ref_data_dir):
     """Phase one chromosome with the genome build's tool: GRCh38 through
-    shapeit4. GRCh37 (shapeit2) is not ported."""
+    shapeit4, GRCh37 through shapeit2."""
     build = _param(config, 'ensembl_genome_version')
-    if build == 'GRCh37':
-        raise NotImplementedError(
-            'GRCh37 phasing through shapeit2 is not ported (ROADMAP.md, '
-            'Queue 1, "GRCh37 phasing"); use a GRCh38 reference')
-    if build != 'GRCh38':
+    phasing = {
+        'GRCh38': infer_haps_grch38_shapeit4,
+        'GRCh37': infer_haps_grch37_shapeit2,
+    }
+    if build not in phasing:
         raise ValueError('unsupported genome version {}'.format(build))
-    infer_haps_grch38_shapeit4(haps_filename, snp_genotype_filename,
-                               chromosome, temp_directory, config,
-                               ref_data_dir)
+    phasing[build](haps_filename, snp_genotype_filename, chromosome,
+                   temp_directory, config, ref_data_dir)
 
 
 # ---------------------------------------------------------------------------

@@ -51,12 +51,15 @@ genetic_map_grch38_filename_template = '{ref_data_dir}/{chromosome}.b38.gmap.gz'
 
 snp_positions_template = '{ref_data_dir}/thousand_genomes_snps.tsv'
 
-# Thousand genomes GRCh37 impute2 panel, the source of the read-level
-# simulation's germline haplotypes
+# Thousand genomes GRCh37 impute2 panel: the reference of GRCh37 phasing
+# through shapeit2, and the source of the read-level simulation's germline
+# haplotypes
 thousand_genomes_directory = '{ref_data_dir}/ALL_1000G_phase1integrated_v3_impute'
 sample_template = thousand_genomes_directory + '/ALL_1000G_phase1integrated_v3.sample'
 legend_template = thousand_genomes_directory + '/ALL_1000G_phase1integrated_v3_chr{chromosome}_impute.legend.gz'
 haplotypes_template = thousand_genomes_directory + '/ALL_1000G_phase1integrated_v3_chr{chromosome}_impute.hap.gz'
+genetic_map_template = thousand_genomes_directory + '/genetic_map_chr{chromosome}_combined_b37.txt'
+phased_chromosome_x = 'X_nonPAR'
 
 ###
 # Algorithm parameters

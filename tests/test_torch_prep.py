@@ -314,12 +314,274 @@ def test_infer_haps_rejects_bad_chr_prefix(sample, tmp_path):
             str(tmp_path / 'tmp'), config, sample['ref'])
 
 
-def test_infer_haps_grch37_is_not_ported(sample, tmp_path):
-    config = dict(sample['config'], ensembl_genome_version='GRCh37')
-    with pytest.raises(NotImplementedError, match='GRCh37'):
-        haplotype.infer_haps(str(tmp_path / 'haps.tsv'),
-                             str(tmp_path / 'g.tsv'), '1',
-                             str(tmp_path / 'tmp'), config, sample['ref'])
+# ---------------------------------------------------------------------------
+# GRCh37: shapeit2
+# ---------------------------------------------------------------------------
+
+GRCH37 = dict(ensembl_genome_version='GRCh37')
+
+
+def panel_rows(ref, chromosome):
+    """The reference's SNP panel rows of one chromosome: 1-based position,
+    ref and alt bases."""
+    rows = [line.rstrip('\n').split('\t') for line in
+            open(os.path.join(ref, 'thousand_genomes_snps.tsv'))]
+    rows = [r for r in rows if r[0] == chromosome]
+    return (np.array([int(r[1]) for r in rows]), [r[2] for r in rows],
+            [r[3] for r in rows])
+
+
+@pytest.fixture(scope='module')
+def grch37(sample, tmp_path_factory):
+    """The sample's reference with a GRCh37 impute2 panel (legend,
+    haplotypes, genetic map, sample file) for chromosomes 1 and 2 and for
+    X_nonPAR, and the normal's genotype calls of chromosome 1; X is
+    chromosome 1's SNPs and calls under the name X, its truth chromosome
+    1's."""
+    import shutil
+    cs = chip_smoke()
+    ref = sample['ref']
+    panel = os.path.join(ref, 'ALL_1000G_phase1integrated_v3_impute')
+    rng = np.random.RandomState(5)
+    for chromosome, panel_chromosome in (('1', '1'), ('2', '2'),
+                                         ('1', 'X_nonPAR')):
+        position, a0, a1 = panel_rows(ref, chromosome)
+        cs.write_impute_panel(panel, panel_chromosome, position, a0, a1, 10,
+                              rng)
+    cs.write_panel_sample(panel, 10)
+    shutil.copy(cs.panel_truth_path(ref, '1'), cs.panel_truth_path(ref, 'X'))
+    genotypes = str(tmp_path_factory.mktemp('grch37') / 'genotypes.tsv')
+    haplotype.infer_snp_genotype_from_normal(
+        genotypes, sample['seqdata']['normal'], '1', sample['config'])
+    return dict(genotypes=genotypes, config=dict(sample['config'], **GRCH37))
+
+
+def infer_both(sample, config, genotypes, chromosome, tmp_path):
+    """Both packages' ``infer_haps`` on the same inputs; returns the paths
+    of their haps TSVs and temporary directories."""
+    jax_path, path = both(tmp_path, 'haps.tsv')
+    jax_tmp, tmp = both(tmp_path, 'tmp')
+    jax_haplotype.infer_haps(jax_path, genotypes, chromosome, jax_tmp,
+                             config, sample['ref'])
+    haplotype.infer_haps(path, genotypes, chromosome, tmp, config,
+                         sample['ref'])
+    return dict(jax=jax_path, port=path, jax_tmp=jax_tmp, tmp=tmp)
+
+
+def graph_argv(tmp):
+    """The graph call's argv as the shapeit stand-in logged it, with the
+    temporary directory's path cut out."""
+    with open(os.path.join(tmp, 'phased.hgraph.log')) as f:
+        return f.read().replace(tmp, 'TMP')
+
+
+def test_infer_haps_grch37_shapeit2(sample, grch37, tmp_path, standins):
+    """Chromosome 1 through the shapeit stand-in: the haps TSV is the JAX
+    package's, with more than one block; the graph call's argv is the
+    JAX package's, and every draw's files are gone."""
+    out = infer_both(sample, grch37['config'], grch37['genotypes'], '1',
+                     tmp_path)
+    assert_same(out['port'], out['jax'])
+    haps = read_tsv(out['port'], str_columns=('chromosome',))
+    assert len(np.unique(haps['hap_label'])) > 1
+    assert set(haps['chromosome']) == {'1'}
+    argv = graph_argv(out['tmp'])
+    assert argv == graph_argv(out['jax_tmp'])
+    assert '--chrX' not in argv and argv.endswith('--seed 12345\n')
+    assert sorted(os.listdir(out['tmp'])) == [
+        'phased.hgraph', 'phased.hgraph.log', 'snps.gen', 'snps.sample']
+
+
+def test_infer_haps_grch37_female_x(sample, grch37, tmp_path, standins):
+    """A female X phases through the X_nonPAR panel with --chrX in the
+    graph call, as the JAX package does."""
+    genotypes = str(tmp_path / 'genotypes_x.tsv')
+    open(genotypes, 'w').write(open(grch37['genotypes']).read())
+    out = infer_both(sample, dict(grch37['config'], is_female=True),
+                     genotypes, 'X', tmp_path)
+    assert_same(out['port'], out['jax'])
+    haps = read_tsv(out['port'], str_columns=('chromosome',))
+    assert set(haps['chromosome']) == {'X'}
+    argv = graph_argv(out['tmp'])
+    assert argv == graph_argv(out['jax_tmp'])
+    assert ' --chrX ' in argv
+    assert 'genetic_map_chrX_nonPAR_combined_b37.txt' in argv
+    assert 'chrX_nonPAR_impute.hap.gz' in argv
+    assert 'chrX_nonPAR_impute.legend.gz' in argv
+
+
+@pytest.mark.parametrize('chromosome, is_female', [('X', False),
+                                                   ('Y', True)],
+                         ids=['male X', 'non-phasable'])
+def test_infer_haps_grch37_null(sample, grch37, tmp_path, chromosome,
+                                is_female):
+    """A male X and a chromosome outside 1-22 and X get null haps, as in
+    the JAX package; no tool is called."""
+    out = infer_both(sample, dict(grch37['config'], is_female=is_female),
+                     grch37['genotypes'], chromosome, tmp_path)
+    text = open(out['port']).read()
+    assert text == open(out['jax']).read()
+    assert text == '\t'.join(haplotype.HAPS_COLUMNS) + '\n'
+    assert not os.path.exists(out['tmp'])
+
+
+def test_infer_haps_grch37_no_genotype(sample, grch37, tmp_path, standins):
+    """A genotype table with no row gives null haps in both packages."""
+    genotypes = str(tmp_path / 'genotypes.tsv')
+    open(genotypes, 'w').write('position\tAA\tAB\tBB\n')
+    out = infer_both(sample, grch37['config'], genotypes, '1', tmp_path)
+    text = open(out['port']).read()
+    assert text == open(out['jax']).read()
+    assert text == '\t'.join(haplotype.HAPS_COLUMNS) + '\n'
+
+
+def test_infer_haps_grch37_no_called_genotype(sample, grch37, tmp_path,
+                                              standins):
+    """Rows, but none called: the port stages nothing, calls no tool and
+    writes null haps. The JAX package stages an empty .gen and calls
+    shapeit on it, which the stand-in, like the tool, refuses."""
+    import subprocess
+    genotypes = str(tmp_path / 'genotypes.tsv')
+    table = read_tsv(grch37['genotypes'])
+    with open(genotypes, 'w') as f:
+        f.write('position\tAA\tAB\tBB\n')
+        f.writelines('{}\t0\t0\t0\n'.format(p)
+                     for p in table['position'].tolist())
+    path = str(tmp_path / 'haps.tsv')
+    haplotype.infer_haps(path, genotypes, '1', str(tmp_path / 'tmp'),
+                         grch37['config'], sample['ref'])
+    assert open(path).read() == '\t'.join(haplotype.HAPS_COLUMNS) + '\n'
+    assert os.listdir(str(tmp_path / 'tmp')) == []
+    with pytest.raises(subprocess.CalledProcessError):
+        jax_haplotype.infer_haps(str(tmp_path / 'jax_haps.tsv'), genotypes,
+                                 '1', str(tmp_path / 'jax_tmp'),
+                                 grch37['config'], sample['ref'])
+
+
+def failing_convert(run, failures):
+    """``_run`` with its first ``failures`` shapeit -convert calls failing
+    as a crashed tool fails."""
+    import subprocess
+    count = [0]
+
+    def wrapped(*args):
+        if list(args[:2]) == ['shapeit', '-convert'] and count[0] < failures:
+            count[0] += 1
+            raise subprocess.CalledProcessError(-11, [str(a) for a in args])
+        return run(*args)
+    return wrapped
+
+
+@pytest.mark.parametrize('failures', [1, 3], ids=['once', 'every time'])
+def test_infer_haps_grch37_retries_convert(sample, grch37, tmp_path,
+                                           standins, monkeypatch, failures):
+    """A -convert that fails once is retried and gives the JAX package's
+    haps; one that fails three times raises in both, naming the seed."""
+    for module in (jax_haplotype, haplotype):
+        monkeypatch.setattr(module, '_run',
+                            failing_convert(module._run, failures))
+    if failures == 1:
+        out = infer_both(sample, grch37['config'], grch37['genotypes'], '1',
+                         tmp_path)
+        assert_same(out['port'], out['jax'])
+        return
+    for module in (jax_haplotype, haplotype):
+        with pytest.raises(Exception, match='3 times with seed 0'):
+            module.infer_haps(str(tmp_path / 'haps.tsv'),
+                              grch37['genotypes'], '1',
+                              str(tmp_path / module.__name__),
+                              grch37['config'], sample['ref'])
+
+
+def test_stage_shapeit2_inputs_byte_for_byte(tmp_path):
+    """The staged .gen and .sample equal the JAX package's byte for byte on
+    a legend with a multi-base row, a non-ACGT row, a repeated position,
+    a row outside the calls, and homozygous and uncalled genotypes."""
+    import gzip
+    legend = str(tmp_path / 'legend.gz')
+    with gzip.open(legend, 'wt') as f:
+        f.write('id position a0 a1 type\n'
+                'rs1 100 A C SNP\n'
+                'rs2 200 AT A INDEL\n'
+                'rs3 300 G N SNP\n'
+                'rs4 400 T G SNP\n'
+                'rs4b 400 T C SNP\n'
+                'rs5 500 C A SNP\n'
+                'rs6 600 G T SNP\n'
+                'rs7 700 A G SNP\n')
+    genotypes = str(tmp_path / 'genotypes.tsv')
+    with open(genotypes, 'w') as f:
+        f.write('position\tAA\tAB\tBB\n100\t0\t1\t0\n200\t0\t1\t0\n'
+                '300\t1\t0\t0\n400\t0\t1\t0\n500\t1\t0\t0\n'
+                '600\t0\t0\t0\n700\t0\t0\t1\n800\t0\t1\t0\n')
+    files = {}
+    for name, module in (('jax', jax_haplotype), ('port', haplotype)):
+        tmp = tmp_path / name
+        tmp.mkdir()
+        files[name] = module._stage_shapeit2_inputs(genotypes, legend, '7',
+                                                    str(tmp))
+    for jax_file, port_file in zip(files['jax'], files['port']):
+        assert open(port_file, 'rb').read() == open(jax_file, 'rb').read()
+    gen = open(files['port'][0]).read().splitlines()
+    assert gen == ['7 7:100 100 A C 0 1 0', '7 7:400 400 T G 0 1 0',
+                   '7 7:400 400 T C 0 1 0', '7 7:500 500 C A 1 0 0',
+                   '7 7:700 700 A G 0 0 1']
+
+
+def test_infer_haps_unknown_build_raises(sample, tmp_path):
+    config = dict(sample['config'], ensembl_genome_version='GRCh36')
+    for module in (jax_haplotype, haplotype):
+        with pytest.raises(ValueError, match='GRCh36'):
+            module.infer_haps(str(tmp_path / 'haps.tsv'),
+                              str(tmp_path / 'g.tsv'), '1',
+                              str(tmp_path / 'tmp'), config, sample['ref'])
+
+
+def draws_of(kind, seed=3):
+    """(position, allele1) of three draws: the same het positions in each,
+    the middle draw lacking some, or the last draw lacking some."""
+    rng = np.random.RandomState(seed)
+    position = np.sort(rng.choice(10 ** 6, 60, replace=False)) + 1
+    fewer = np.sort(rng.choice(60, 45, replace=False))
+    keep = {'same': [None, None, None], 'middle lacks': [None, fewer, None],
+            'last lacks': [None, None, fewer]}[kind]
+    draws = []
+    for rows in keep:
+        rows = np.arange(60) if rows is None else rows
+        allele = np.cumsum(rng.rand(60) < 0.1) % 2
+        draws.append((position[rows], allele[rows]))
+    return draws
+
+
+@pytest.mark.parametrize('kind', ['same', 'middle lacks', 'last lacks'])
+def test_infer_haps_grch37_draws_of_different_sites(sample, grch37, tmp_path,
+                                                    standins, monkeypatch,
+                                                    kind):
+    """The flips of the draws summed as the JAX code sums its
+    position-indexed series: where a draw lacks a position the sum is NaN
+    there, which splits no block; where the last draw lacks one, both
+    raise."""
+    draws = draws_of(kind)
+    monkeypatch.setattr(
+        jax_haplotype, '_sample_shapeit2_phasing',
+        lambda graph, prefix, seed: pd.Series(
+            draws[seed][1], index=pd.Index(draws[seed][0], name='position'),
+            name='allele'))
+    monkeypatch.setattr(haplotype, '_sample_shapeit2_phasing',
+                        lambda graph, prefix, seed: draws[seed])
+    config = dict(grch37['config'], shapeit_num_samples=3,
+                  shapeit_confidence_threshold=0.9)
+    if kind == 'last lacks':
+        for module in (jax_haplotype, haplotype):
+            with pytest.raises(ValueError):
+                module.infer_haps(str(tmp_path / 'haps.tsv'),
+                                  grch37['genotypes'], '1',
+                                  str(tmp_path / module.__name__), config,
+                                  sample['ref'])
+        return
+    out = infer_both(sample, config, grch37['genotypes'], '1', tmp_path)
+    assert_same(out['port'], out['jax'])
+    assert len(np.unique(read_tsv(out['port'])['hap_label'])) > 1
 
 
 @pytest.fixture(scope='module')

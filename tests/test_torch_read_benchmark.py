@@ -12,10 +12,12 @@ runner's merged evaluation must have the JAX package's columns and, on
 the port's results store, the JAX evaluation's values at rtol 1e-12.
 
 Run as a script, ``python tests/test_torch_read_benchmark.py --phase12
-WORKDIR`` makes ``chip_smoke.py`` phase 12's inputs (the three chromosomes
-of ``RUN_CHROMOSOMES`` at ``READ_H_TOTAL``), runs the JAX package's read
-benchmark on them (``benchmark/run_read_benchmark.py``, its fit at the
-defaults, on the CPU) and the port's up to the count table, checks that
+WORKDIR [--build GRCh37|GRCh38]`` makes ``chip_smoke.py`` phase 12's
+inputs (the three chromosomes of ``RUN_CHROMOSOMES`` at ``READ_H_TOTAL``,
+on the build ``READ_GENOME_VERSION`` unless ``--build`` names another),
+runs the JAX package's read benchmark on them
+(``benchmark/run_read_benchmark.py``, its fit at the defaults, on the
+CPU) and the port's up to the count table, checks that
 the two packages' seqdata and count tables are equal, and prints the
 constants ``READ_JAX`` of ``chip_smoke.py`` (with the restart the JAX fit
 chose, every restart's ELBO, and the JAX package's refits of the restarts
@@ -384,12 +386,15 @@ def to_the_counts(tasks):
             and not t.name.startswith(('evaluate_', 'merge_'))]
 
 
-def test_runners_give_the_jax_count_table(fixture, tmp_path):
+@pytest.mark.parametrize('build', ['GRCh38', 'GRCh37'])
+def test_runners_give_the_jax_count_table(fixture, tmp_path, build):
     """Both packages' read benchmark runners on the fixture up to the count
     table, with nothing seeded between their tasks: the port's simulation
     tasks leave numpy's global state where the JAX tasks leave it, so the
     GC sample the run draws from it (``sample_gc``), and with it the count
-    table, is the JAX package's."""
+    table, is the JAX package's. On either build: the run from seqdata
+    phases through shapeit4's stand-ins on GRCh38 and shapeit's on
+    GRCh37."""
     import remixt_tpu.simulations.pipeline as jax_sim
     import remixt_tpu_torch.simulations.pipeline as torch_sim
     from remixt_tpu_torch.benchmark import run_read_benchmark
@@ -403,8 +408,10 @@ def test_runners_give_the_jax_count_table(fixture, tmp_path):
             self.tasks = to_the_counts(self.tasks)
             return super().run(workdir, **kwargs)
 
+    config = dict(fixture['config'], ensembl_genome_version=build)
     config_file = tmp_path / 'jax_config.yaml'
-    config_file.write_text(json.dumps(jax_config(fixture)))
+    config_file.write_text(json.dumps(jax_config(dict(fixture,
+                                                      config=config))))
     raw = {name: str(tmp_path / name) for name in ('jax', 'torch')}
     saved = [(sim, sim.simulate_germline_alleles)
              for sim in (jax_sim, torch_sim)]
@@ -416,11 +423,10 @@ def test_runners_give_the_jax_count_table(fixture, tmp_path):
         runner.Workflow = JaxToTheCounts
         with cs.first_on_path(cs.write_standin_tools(str(tmp_path / 'bin'))):
             sim_defs = torch_sim.create_simulations(
-                fixture['sim_defs'], fixture['config'],
-                fixture['ref_data_dir'])
+                fixture['sim_defs'], config, fixture['ref_data_dir'])
             flow = run_read_benchmark.create_workflow(
-                sim_defs, raw['torch'], str(tmp_path / 'ev'),
-                fixture['config'], fixture['ref_data_dir'], device='cpu')
+                sim_defs, raw['torch'], str(tmp_path / 'ev'), config,
+                fixture['ref_data_dir'], device='cpu')
             flow.tasks = to_the_counts(flow.tasks)
             np.random.seed(1)
             flow.run(os.path.join(raw['torch'], 'work'))
@@ -439,6 +445,10 @@ def test_runners_give_the_jax_count_table(fixture, tmp_path):
                           'sample_tumour.tsv')
     assert cs.count_table_digest(cs.read_benchmark_paths(raw['torch'])[
         'counts']) == cs.count_table_digest(counts)
+    graphs = [name for name in ('phased.hgraph', 'phasing.bingraph')
+              if any(name in files for _, _, files in os.walk(raw['torch']))]
+    assert graphs == [{'GRCh38': 'phasing.bingraph',
+                       'GRCh37': 'phased.hgraph'}[build]]
 
 
 CHOICE_REFERENCE = dict(
@@ -525,9 +535,10 @@ def test_resample_runner_without_cuda_raises(fixture, tmp_path,
 # phase 12's reference numbers
 # ---------------------------------------------------------------------------
 
-def phase12_reference(workdir):
-    """Run the JAX package's read benchmark on phase 12's inputs and the
-    port's up to the count table; print the constants of ``READ_JAX``."""
+def phase12_reference(workdir, build):
+    """Run the JAX package's read benchmark on phase 12's inputs, on the
+    genome build ``build``, and the port's up to the count table; print the
+    constants of ``READ_JAX``."""
     import remixt_tpu.simulations.pipeline as jax_sim
     from remixt_tpu.io.hdf5 import HDFStore
     import remixt_tpu_torch.simulations.pipeline as torch_sim
@@ -537,8 +548,8 @@ def phase12_reference(workdir):
     t0 = time.time()
     fixture = cs.make_read_fixture(os.path.join(workdir, 'fixture'),
                                    cs.RUN_CHROMOSOMES, cs.READ_H_TOTAL,
-                                   with_hdf5=True)
-    print('fixture', fixture['times'], round(time.time() - t0, 1),
+                                   with_hdf5=True, genome_version=build)
+    print('fixture', build, fixture['times'], round(time.time() - t0, 1),
           flush=True)
     bin_dir = cs.write_standin_tools(os.path.join(workdir, 'bin'))
     config_file = os.path.join(workdir, 'jax_config.yaml')
@@ -629,12 +640,19 @@ def phase12_near(workdir):
 
 
 if __name__ == '__main__':
-    if sys.argv[1:2] != ['--phase12'] or len(sys.argv) not in (3, 4) or \
-            sys.argv[3:] not in ([], ['--near']):
-        sys.exit('usage: python tests/test_torch_read_benchmark.py '
-                 '--phase12 WORKDIR [--near]')
+    import argparse
+    parser = argparse.ArgumentParser(
+        usage='python tests/test_torch_read_benchmark.py --phase12 WORKDIR '
+              '[--near] [--build GRCh37|GRCh38]')
+    parser.add_argument('--phase12', metavar='WORKDIR', required=True)
+    parser.add_argument('--near', action='store_true')
+    parser.add_argument('--build', choices=['GRCh37', 'GRCh38'],
+                        help='the reference\'s genome build (default: '
+                             'chip_smoke.READ_GENOME_VERSION)')
+    args = parser.parse_args()
     sys.path.insert(0, REPO)
-    if sys.argv[3:]:
-        print('READ_JAX.update(' + repr(phase12_near(sys.argv[2])) + ')')
+    if args.near:
+        print('READ_JAX.update(' + repr(phase12_near(args.phase12)) + ')')
     else:
-        phase12_reference(sys.argv[2])
+        phase12_reference(args.phase12, args.build
+                          or chip_smoke().READ_GENOME_VERSION)
