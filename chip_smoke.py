@@ -166,7 +166,15 @@ Phases, in order; any failure exits non-zero:
    ``PANEL_HAPLOTYPES`` haplotypes at its SNPs, ``benchmark/
    sim_defs.yaml``'s simulation on chromosomes 20–22 (N=282,
    ``READ_H_TOTAL``), lengths from the reference's FASTA index
-   (``make_read_fixture``); germline alleles, normal and tumour seqdata
+   (``make_read_fixture``). The run reads that reference as the port's
+   ``create_ref_data`` builds it (``build_read_reference``): its upstream
+   sources (one gzipped Ensembl FASTA a chromosome, UCSC's gap table with
+   chr-prefixed names, the impute2 tarball) written into a mirror that
+   the ``wget`` stand-in serves, ``ui.main.main(['create_ref_data', ...,
+   '--bwa_index_genome'])`` on GRCh37 through the stand-in tools, and the
+   built FASTA, its index, the gap table and the SNP positions checked
+   equal to ``write_reference``'s byte for byte; the mappability store
+   stays ``write_reference``'s. Germline alleles, normal and tumour seqdata
    simulated, the run from seqdata with the stand-in phasing tools (their
    truth written from the simulated germline, ``with_germline_truth``),
    the fit on the card at the defaults, the
@@ -194,10 +202,31 @@ Phases, in order; any failure exits non-zero:
    through ``fit_many``, which must equal the cohort's fit of it (the
    second on the card) bit for bit. Prints each step's wall time per
    tumour, each fit's waves, the peak device memory and the host's peak
-   resident set. The inputs are made once, before phase 11, and phase 13
-   runs in a process of its own beside phases 11 and 12 (its run is
-   host work most of the time, as theirs is): the three phases' times
-   are taken with the other process running.
+   resident set.
+
+   The order, for the time limit (the runs of phases 11–13 are host work
+   most of the time, and hosts differ by up to 1.5× in it): phase 11's
+   and 13's inputs are made once, after phase 8, and phase 13 starts
+   then in a process of its own, beside phases 9–12 and 14; after phase
+   10 phase 11 starts in another, and this process runs phases 12 and
+   14. Phases 9–14 are timed with the other processes running.
+
+14. The reference build and the bwa mappability workflow, host only, in
+   the main process after phase 12 (phases 11 and 13 may still run): on
+   a genome made from ``REFBUILD_SEED`` (chromosomes 1, 2 and X of 240,
+   180 and 120 kb with runs of N, soft-masked stretches, a 110 kb repeat
+   between 1 and 2, a 3 kb one and a tandem repeat), its upstream GRCh38
+   sources in a mirror (Ensembl FASTAs, UCSC gap table, a 1000 Genomes VCF
+   a chromosome, the genetic maps' tarball); ``ui.main.main(
+   ['create_ref_data', ...])`` through the stand-ins, its directory equal
+   to the JAX package's by digest (``REFBUILD_JAX``); then
+   ``ui.main.main(['mappability_bwa', ...])`` on it at k=100 with
+   ``REFBUILD_CHUNK_LINES`` lines a chunk (11 chunks, one wholly in the
+   repeat's second copy, whose bedgraph is empty where the JAX step
+   raises), the store a directory: its indicator must equal the truth of
+   the ``bwa`` stand-in (the positions whose k-mer is unique) and its
+   arrays the JAX package's with that chunk left out. Both again must
+   call no tool. Prints each step's wall time and the peak resident set.
 
 The line before the last holds the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -2336,23 +2365,31 @@ RUN_JAX = {'counts': {'rows': 551,
                                             'mix_pred_2': 0.18948835134506226}}}}
 
 STANDIN_TOOLS = ('bgzip', 'tabix', 'bcftools', 'shapeit4', 'bingraphsample',
-                 'shapeit')
+                 'shapeit', 'wget', 'samtools', 'bwa')
+# the file of a stand-in bin directory that logs every call, one line each
+STANDIN_CALLS = 'calls.log'
 STANDIN_SOURCE = r"""
-# A stand-in for the phasing tools of the run path (bgzip, tabix, bcftools,
-# shapeit4 and bingraphsample for GRCh38, shapeit for GRCh37), for a
-# synthetic sample whose true phase the reference directory's truth file
-# (TRUTH) holds. It implements only the calls that
-# remixt_tpu_torch/analysis/haplotype.py makes. Its "BCF" files are
-# plain-text VCF and its shapeit graph a text file of its own; its phasings
-# are the true phase with switches drawn at every SWITCH_EVERY-th het site
-# with probability SWITCH_RATE.
+# A stand-in for the external tools of the port: the phasing tools of the
+# run path (bgzip, tabix, bcftools, shapeit4 and bingraphsample for GRCh38,
+# shapeit for GRCh37), for a synthetic sample whose true phase the
+# reference directory's truth file (TRUTH) holds, and the tools of the
+# reference build (wget, samtools faidx, bwa index and mem, bcftools view
+# and index). It implements only the calls that remixt_tpu_torch makes.
+# Its "BCF" files are plain-text VCF and its shapeit graph a text file of
+# its own; its phasings are the true phase with switches drawn at every
+# SWITCH_EVERY-th het site with probability SWITCH_RATE. Its wget copies
+# from the local directory MIRROR and never touches the network. Every call
+# is logged to CALLS beside the tool.
 import gzip
 import os
 import random
+import shutil
 import sys
 
 SWITCH_EVERY, SWITCH_RATE = @SWITCH_EVERY@, @SWITCH_RATE@
 TRUTH = '@TRUTH@'
+MIRROR = @MIRROR@
+CALLS = '@CALLS@'
 
 
 def lines(path):
@@ -2445,8 +2482,102 @@ def write_vcf(path, rows):
         f.writelines('\t'.join(row) + '\n' for row in rows)
 
 
+def wget(args):
+    # url -c -O path: the mirror's file named as the URL's last path
+    # component, its query dropped; wget's server-error code without one
+    url = args[0]
+    name = url.split('?', 1)[0].rstrip('/').rsplit('/', 1)[-1]
+    source = os.path.join(MIRROR, name) if MIRROR else None
+    if source is None or not os.path.isfile(source):
+        sys.stderr.write('wget stand-in: no mirror file for {}\n'.format(url))
+        sys.exit(8)
+    shutil.copyfile(source, option(args, '-O'))
+
+
+def faidx(path):
+    # path.fai: per record name, bases, offset of the first base, bases
+    # and bytes of its first line, as samtools writes them
+    with open(path, 'rb') as f:
+        data = f.read()
+    rows, start = [], data.find(b'>')
+    while start != -1:
+        body = data.index(b'\n', start) + 1
+        name = data[start + 1:body].split()[0].decode()
+        following = data.find(b'\n>', body)
+        end = len(data) if following == -1 else following + 1
+        first = data.find(b'\n', body, end)
+        line_bases = (end if first == -1 else first) - body
+        length = end - body - data.count(b'\n', body, end)
+        rows.append('{}\t{}\t{}\t{}\t{}\n'.format(
+            name, length, body, line_bases, line_bases + 1))
+        start = -1 if following == -1 else following + 1
+    with open(path + '.fai', 'w') as f:
+        f.writelines(rows)
+
+
+def read_genome(path):
+    # [(name, upper-case bases)] of a FASTA
+    genome, name, parts = [], None, []
+    with open(path, 'rb') as f:
+        for line in f:
+            line = line.strip()
+            if line.startswith(b'>'):
+                if name is not None:
+                    genome.append((name, b''.join(parts).upper()))
+                name, parts = line[1:].split()[0].decode(), []
+            elif line:
+                parts.append(line)
+    if name is not None:
+        genome.append((name, b''.join(parts).upper()))
+    return genome
+
+
+def bwa_mem(genome_path, kmers_path):
+    # SAM of k-mers (a FASTA of chromosome:start names) on the forward
+    # strand: a k-mer that occurs once in the genome at its origin, MAPQ 60;
+    # one that occurs more than once at its first occurrence, MAPQ 0; one
+    # that does not occur unmapped
+    kmers = lines(kmers_path)
+    names, seqs = kmers[0::2], [seq.encode() for seq in kmers[1::2]]
+    genome = read_genome(genome_path)
+    out = ['@HD\tVN:1.6\n'] + ['@SQ\tSN:{}\tLN:{}\n'.format(n, len(g))
+                                for n, g in genome]
+    out.append('@PG\tID:bwa\tPN:bwa\tCL:bwa mem -M {} {}\n'.format(
+        genome_path, kmers_path))
+    k = len(seqs[0]) if seqs else 0
+    first, repeated, places = {}, set(), []
+    for name, bases in genome if seqs else ():
+        offset = len(places)
+        places += [(name, pos) for pos in range(len(bases) - k + 1)]
+        for pos in range(len(bases) - k + 1):
+            window = bases[pos:pos + k]
+            if first.setdefault(window, offset + pos) != offset + pos:
+                repeated.add(window)
+    for name, seq in zip(names, seqs):
+        if seq in first:
+            chrom, pos = places[first[seq]]
+            out.append('{}\t0\t{}\t{}\t{}\t{}M\t*\t0\t0\t{}\t*\n'.format(
+                name[1:], chrom, pos + 1, 0 if seq in repeated else 60, k,
+                seq.decode()))
+        else:
+            out.append('{}\t4\t*\t0\t0\t*\t*\t0\t0\t{}\t*\n'.format(
+                name[1:], seq.decode()))
+    sys.stdout.write(''.join(out))
+
+
 def main(tool, args):
-    if tool == 'bgzip':
+    with open(CALLS, 'a') as f:
+        f.write(' '.join([tool] + args) + '\n')
+    if tool == 'wget':
+        wget(args)
+    elif tool == 'samtools' and args[0] == 'faidx':
+        faidx(args[1])
+    elif tool == 'bwa' and args[0] == 'index':
+        for extension in ('amb', 'ann', 'bwt', 'pac', 'sa'):
+            touch(args[-1] + '.' + extension)
+    elif tool == 'bwa' and args[0] == 'mem':
+        bwa_mem(args[-2], args[-1])
+    elif tool == 'bgzip':
         path = args[-1]
         with open(path, 'rb') as src, gzip.open(path + '.gz', 'wb') as dst:
             dst.write(src.read())
@@ -2492,14 +2623,19 @@ main(os.path.basename(sys.argv[0]), sys.argv[1:])
 """
 
 
-def write_standin_tools(bin_dir):
+def write_standin_tools(bin_dir, mirror_dir=None):
     """Executable stand-ins of ``STANDIN_TOOLS`` in ``bin_dir`` (for the
-    front of PATH). Returns ``bin_dir``."""
+    front of PATH), logging every call to ``bin_dir/STANDIN_CALLS``; their
+    ``wget`` serves the files of ``mirror_dir`` (none without one).
+    Returns ``bin_dir``."""
     os.makedirs(bin_dir, exist_ok=True)
     source = '#!{} -S\n'.format(sys.executable) + STANDIN_SOURCE.replace(
         '@SWITCH_EVERY@', str(SWITCH_EVERY)).replace(
             '@SWITCH_RATE@', str(SWITCH_RATE)).replace(
-                '@TRUTH@', panel_truth_path('{ref_dir}', '{chromosome}'))
+                '@TRUTH@', panel_truth_path('{ref_dir}', '{chromosome}')
+    ).replace('@MIRROR@', repr(mirror_dir and os.path.abspath(mirror_dir))
+              ).replace('@CALLS@', os.path.abspath(os.path.join(
+                  bin_dir, STANDIN_CALLS)))
     for tool in STANDIN_TOOLS:
         path = os.path.join(bin_dir, tool)
         with open(path, 'w') as f:
@@ -2778,6 +2914,224 @@ def write_mappability(stem, mappable, with_hdf5):
                     group.create_dataset(name, data=values)
 
 
+# the Ensembl release and the UCSC build of each genome version's mirror
+BUILD_NAMES = {'GRCh37': ('75', 'hg19'), 'GRCh38': ('93', 'hg38')}
+
+
+def gzip_writer(path, mode='wb'):
+    """A gzip file at level 1 with no time stamp: the same bytes at every
+    run."""
+    import gzip
+    import io
+    stream = gzip.GzipFile(path, 'wb', compresslevel=1, mtime=0)
+    return stream if mode == 'wb' else io.TextIOWrapper(stream,
+                                                        newline='')
+
+
+def fasta_lines(bases, width=60):
+    """The body of a FASTA record: ``bases`` (bytes) in lines of
+    ``width``."""
+    return b''.join(bases[i:i + width] + b'\n'
+                    for i in range(0, len(bases), width))
+
+
+def write_fasta_mirror(mirror, genome_version, records):
+    """One gzipped Ensembl FASTA a chromosome, under the name that
+    ``ensembl_assembly_url_template`` ends in for the assembly
+    ``chromosome.<name>``: an Ensembl header and the body of ``records``
+    ((name, length, body bytes of 60-base lines))."""
+    os.makedirs(mirror, exist_ok=True)
+    for chrom, length, body in records:
+        name = 'Homo_sapiens.{}.dna.chromosome.{}.fa.gz'.format(
+            genome_version, chrom)
+        with gzip_writer(os.path.join(mirror, name)) as f:
+            f.write('>{0} dna:chromosome chromosome:{1}:{0}:1:{2}:1 REF\n'
+                    .format(chrom, genome_version, length).encode())
+            f.write(body)
+
+
+def write_gap_mirror(mirror, rows):
+    """UCSC's ``gap.txt.gz`` of the rows (bin, chromosome, start, end, ix,
+    type, bridge), chromosome names ``chr``-prefixed."""
+    os.makedirs(mirror, exist_ok=True)
+    with gzip_writer(os.path.join(mirror, 'gap.txt.gz'), 'wt') as f:
+        for i, chrom, start, end, ix, kind, bridge in rows:
+            f.write('{}\tchr{}\t{}\t{}\t{}\tN\t{}\t{}\t{}\n'.format(
+                i, chrom, start, end, ix, int(end) - int(start), kind,
+                bridge))
+
+
+def write_tar_mirror(path, members):
+    """A gzipped tarball at ``path`` of ``members`` ((file or directory,
+    its name in the archive))."""
+    import tarfile
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with tarfile.open(path, 'w:gz', compresslevel=1) as tar:
+        for source, name in members:
+            tar.add(source, arcname=name)
+
+
+def same_file(a, b):
+    """Whether two files hold the same bytes, a .gz file's decompressed."""
+    import gzip
+    contents = []
+    for path in (a, b):
+        opener = gzip.open if path.endswith('.gz') else open
+        with opener(path, 'rb') as f:
+            contents.append(f.read())
+    return contents[0] == contents[1]
+
+
+def tree_digest(root):
+    """{path under ``root``: the sha256 (first 16 hex digits) of its bytes,
+    a .gz file's decompressed} of every file under ``root``."""
+    import gzip
+    digest = {}
+    for directory, _, files in os.walk(root):
+        for name in files:
+            path = os.path.join(directory, name)
+            opener = gzip.open if name.endswith('.gz') else open
+            with opener(path, 'rb') as f:
+                digest[os.path.relpath(path, root)] = hashlib.sha256(
+                    f.read()).hexdigest()[:16]
+    return dict(sorted(digest.items()))
+
+
+def build_config(genome_version, chromosomes):
+    """The config of a reference build of ``chromosomes`` on
+    ``genome_version``: its Ensembl release and UCSC build
+    (``BUILD_NAMES``), an assembly a chromosome, and the chromosomes."""
+    ensembl_version, ucsc_version = BUILD_NAMES[genome_version]
+    return dict(ensembl_genome_version=genome_version,
+                ensembl_version=ensembl_version,
+                ucsc_genome_version=ucsc_version,
+                ensembl_assemblies=['chromosome.' + c for c in chromosomes],
+                chromosomes=list(chromosomes))
+
+
+@contextlib.contextmanager
+def timed_steps():
+    """Swaps ``utils.AutoSentinal.run`` for one that appends (step name,
+    seconds, whether it ran) of each step to the list it yields."""
+    from remixt_tpu_torch import utils
+    steps, run = [], utils.AutoSentinal.run
+
+    def timed(sentinal, step):
+        t0 = time.time()
+        ran = not os.path.exists(sentinal.sentinal_prefix + step.__name__)
+        run(sentinal, step)
+        steps.append((step.__name__, time.time() - t0, ran))
+    utils.AutoSentinal.run = timed
+    try:
+        yield steps
+    finally:
+        utils.AutoSentinal.run = run
+
+
+def check_standin_wget(bin_dir):
+    """Raise unless the ``wget`` on the PATH is the stand-in of
+    ``bin_dir``: the reference build must never reach the network."""
+    found = shutil.which('wget')
+    if found is None or os.path.realpath(found) != os.path.realpath(
+            os.path.join(bin_dir, 'wget')):
+        raise RuntimeError('the wget on the PATH is {}, not the stand-in of '
+                           '{}'.format(found, bin_dir))
+
+
+def create_ref_data_cli(built_dir, config, bin_dir):
+    """``create_ref_data`` through ``ui.main.main`` on ``config`` (written
+    beside ``built_dir``), with ``--bwa_index_genome`` and the stand-ins
+    of ``bin_dir`` first on the PATH. Returns the steps' (name, seconds,
+    ran), the whole call's seconds and the config file."""
+    from remixt_tpu_torch.ui import main as cli
+    config_file = built_dir.rstrip('/') + '.config.yaml'
+    with open(config_file, 'w') as f:
+        json.dump(config, f)
+    with timed_steps() as steps, first_on_path(bin_dir):
+        check_standin_wget(bin_dir)
+        t0 = time.time()
+        cli.main(['create_ref_data', built_dir, '--config', config_file,
+                  '--bwa_index_genome'])
+        whole = time.time() - t0
+    return steps, whole, config_file
+
+
+def write_read_mirror(ref_dir, genome_version, mirror_dir):
+    """The upstream sources of ``write_reference``'s reference in
+    ``ref_dir`` with its impute2 panel, written into ``mirror_dir``: its
+    FASTA as one Ensembl FASTA a chromosome, its gap table with UCSC's
+    chr-prefixed names, its impute2 panel as the tarball. Draws from no
+    generator."""
+    import gzip
+    fasta = os.path.join(ref_dir, 'genome.fa')
+    with open(fasta, 'rb') as fa, open(fasta + '.fai') as fai:
+        records = []
+        for line in fai:
+            chrom, length, offset = line.split('\t')[:3]
+            full, rest = divmod(int(length), 60)
+            fa.seek(int(offset))
+            records.append((chrom, int(length),
+                            fa.read(full * 61 + (rest + 1 if rest else 0))))
+    write_fasta_mirror(mirror_dir, genome_version, records)
+    del records
+    with gzip.open(os.path.join(ref_dir, 'gap.txt.gz'), 'rt') as f:
+        gaps = [line.rstrip('\n').split('\t') for line in f]
+    write_gap_mirror(mirror_dir, [row[:5] + row[7:] for row in gaps])
+    panel = 'ALL_1000G_phase1integrated_v3_impute'
+    write_tar_mirror(os.path.join(mirror_dir, panel + '.tgz'),
+                     [(os.path.join(ref_dir, panel), panel)])
+
+
+def build_read_reference(label, fixture, chromosome_lengths, root, bin_dir,
+                         mirror_dir):
+    """The read benchmark's reference as the port builds it: the upstream
+    sources of ``fixture``'s reference written into ``mirror_dir``
+    (``write_read_mirror``), then ``create_ref_data`` into ``root`` through
+    the stand-ins of ``bin_dir``. The FASTA, its index, the gap table
+    (decompressed) and the SNP positions must equal ``write_reference``'s
+    byte for byte; the stand-ins' truth files are copied, and the run's
+    config (the build's, with the fixture's mappability store) rewritten.
+    Returns the fixture on the built reference."""
+    from remixt_tpu_torch import config as config_mod
+
+    ref_dir = fixture['ref_data_dir']
+    genome_version = fixture['config']['ensembl_genome_version']
+    t0 = time.time()
+    write_read_mirror(ref_dir, genome_version, mirror_dir)
+    mirror_s = time.time() - t0
+
+    config = build_config(genome_version, chromosome_lengths)
+    steps, whole, _ = create_ref_data_cli(root, config, bin_dir)
+    built = {name: config_mod.get_filename(config, root, name)
+             for name in ('genome_fasta', 'genome_fai', 'gap_table',
+                          'snp_positions')}
+    fasta = os.path.join(ref_dir, 'genome.fa')
+    made = dict(genome_fasta=fasta, genome_fai=fasta + '.fai',
+                gap_table=os.path.join(ref_dir, 'gap.txt.gz'),
+                snp_positions=os.path.join(ref_dir,
+                                           'thousand_genomes_snps.tsv'))
+    for name, path in built.items():
+        if not same_file(path, made[name]):
+            raise AssertionError('{}: the built {} ({}) is not '
+                                 'write_reference\'s'.format(label, name,
+                                                             path))
+    for chrom in chromosome_lengths:
+        shutil.copyfile(panel_truth_path(ref_dir, chrom),
+                        panel_truth_path(root, chrom))
+    log('{}: reference built by create_ref_data ({}): mirror written in '
+        '{:.1f} s, the build {:.1f} s ({}); FASTA, .fai, gap table and SNP '
+        'positions equal to write_reference\'s'.format(
+            label, genome_version, mirror_s, whole, ', '.join(
+                '{} {:.1f} s'.format(name, sec) for name, sec, _ in steps)))
+    run_config = dict(config, mappability_filename=fixture['config'][
+        'mappability_filename'])
+    with open(fixture['config_file'], 'w') as f:
+        json.dump(run_config, f)
+    times = dict(fixture['times'], mirror=mirror_s, create_ref_data=whole)
+    return dict(fixture, ref_data_dir=root, config=run_config, times=times,
+                build_steps=steps)
+
+
 def run_mixture_params(chromosome_lengths):
     """The accuracy benchmark's simulation parameters
     (``benchmark/accuracy_sim_defs.yaml``, ``accuracy_0_0``, seed 1234) on
@@ -2962,26 +3316,38 @@ def reference_config(ref_dir, chromosome_lengths):
     }
 
 
-def host_peak_reset():
-    """Reset the process's peak resident set (``/proc/self/clear_refs``);
-    False where the kernel refuses."""
-    try:
-        with open('/proc/self/clear_refs', 'w') as f:
-            f.write('5')
-        return True
-    except OSError:
-        return False
-
-
-def host_peak_gb():
-    """The process's peak resident set (VmHWM, else the rusage maximum),
-    in GB."""
-    import resource
+def host_rss_bytes():
+    """The process's resident set now (VmRSS of /proc/self/status)."""
     with open('/proc/self/status') as f:
         for line in f:
-            if line.startswith('VmHWM:'):
-                return int(line.split()[1]) * 1024 / 1e9
-    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9
+            if line.startswith('VmRSS:'):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError('/proc/self/status has no VmRSS')
+
+
+class HostPeak:
+    """The process's peak resident set from its making on, sampled every
+    ``interval`` seconds by a thread that only reads
+    ``/proc/self/status``; ``stop()`` ends the sampling and returns the
+    peak in GB. ``start`` is the resident set at the making, in bytes."""
+
+    def __init__(self, interval=0.05):
+        import threading
+        self.interval = interval
+        self.start = self.peak = host_rss_bytes()
+        self._done = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+
+    def _sample(self):
+        while not self._done.wait(self.interval):
+            self.peak = max(self.peak, host_rss_bytes())
+
+    def stop(self):
+        self._done.set()
+        self._thread.join()
+        self.peak = max(self.peak, host_rss_bytes())
+        return self.peak / 1e9
 
 
 RUN_STEPS = (
@@ -3319,7 +3685,7 @@ def phase_run(smi, fixture):
     here = os.path.dirname(os.path.abspath(__file__))
     root = os.path.join(here, 'build', 'chip_smoke', 'run')
     t_phase = time.time()
-    reset = host_peak_reset()
+    peak = HostPeak()
     run = run_cli('phase 11', root, RUN_CHROMOSOMES, RUN_DEPTH,
                   fixture=fixture)
     device_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -3365,8 +3731,8 @@ def phase_run(smi, fixture):
     check_chosen_restart('phase 11', mixture, tables, RUN_JAX)
     log('phase 11: run CLI {:.1f} s, phase {:.1f} s; max_memory_allocated '
         '{:.3f} GB; host peak RSS {:.3f} GB ({}); {}'.format(
-            run['whole'], time.time() - t_phase, device_gb, host_peak_gb(),
-            'since the phase began' if reset else 'of the whole script',
+            run['whole'], time.time() - t_phase, device_gb, peak.stop(),
+            'sampled every 50 ms since the phase began',
             smi))
     return expected
 
@@ -3831,7 +4197,9 @@ def read_benchmark_paths(raw):
 
 
 def read_benchmark(label, root, chromosome_lengths, h_total, N=None):
-    """The read benchmark's inputs made in ``root``, then its runner
+    """The read benchmark's inputs made in ``root``, its reference built
+    from them by the port's ``create_ref_data`` (``build_read_reference``),
+    then its runner
     (``remixt_tpu_torch.benchmark.run_read_benchmark.main``) on them, the
     fit on the card at the default config, the stand-in phasing tools
     first on the PATH, their truth written from the simulated germline
@@ -3850,7 +4218,11 @@ def read_benchmark(label, root, chromosome_lengths, h_total, N=None):
             label, len(chromosome_lengths),
             sum(chromosome_lengths.values()) / 1e6,
             fixture['times']['reference and panel'], h_total))
-    bin_dir = write_standin_tools(os.path.join(root, 'bin'))
+    mirror_dir = os.path.join(root, 'mirror')
+    bin_dir = write_standin_tools(os.path.join(root, 'bin'), mirror_dir)
+    fixture = build_read_reference(label, fixture, chromosome_lengths,
+                                   os.path.join(root, 'built'), bin_dir,
+                                   mirror_dir)
     raw = os.path.join(root, 'raw')
     table = store.store_name(os.path.join(root, 'evaluation'))
     argv = [fixture['ref_data_dir'], fixture['sim_defs'], raw, table,
@@ -3971,7 +4343,7 @@ def phase_read_benchmark(smi):
     here = os.path.dirname(os.path.abspath(__file__))
     root = os.path.join(here, 'build', 'chip_smoke', 'read')
     t_phase = time.time()
-    reset = host_peak_reset()
+    peak = HostPeak()
     run = read_benchmark('phase 12', root, RUN_CHROMOSOMES, READ_H_TOTAL)
     device_gb = torch.cuda.max_memory_allocated() / 1e9
     log_run_steps('phase 12', run)
@@ -4032,10 +4404,407 @@ def phase_read_benchmark(smi):
         'phase {:.1f} s; max_memory_allocated {:.3f} GB; host peak RSS '
         '{:.3f} GB ({}); {}'.format(
             build, run['whole'], sum(cli_times.values()),
-            time.time() - t_phase, device_gb, host_peak_gb(),
-            'since the phase began' if reset else 'of the whole script',
+            time.time() - t_phase, device_gb, peak.stop(),
+            'sampled every 50 ms since the phase began',
             smi))
     return expected
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the reference build on GRCh38 and the bwa mappability workflow
+# ---------------------------------------------------------------------------
+
+# phase 14's synthetic genome (``refbuild_genome``), made from REFBUILD_SEED
+REFBUILD_CHROMOSOMES = {'1': 240000, '2': 180000, 'X': 120000}
+REFBUILD_SEED = 14
+# the k-mer length (the defaults' mappability_length) and the lines of the
+# k-mer FASTA a chunk of the mappability workflow (50,000 k-mers; the
+# defaults' 4,000,000 lines would make one chunk of this genome)
+REFBUILD_K = 100
+REFBUILD_CHUNK_LINES = 100000
+# what the JAX package makes of phase 14's mirror on the CPU (``python
+# tests/test_torch_ref_data.py --phase14 WORKDIR`` and ``python
+# tests/test_torch_mappability.py --phase14 WORKDIR``): the digest of its
+# create_ref_data directory (``tree_digest``), and of its mappability store
+# (``store_digest``) with the chunks whose create_bedgraph raises left out
+# (``empty_chunks``: the chunks that lie wholly in the second copy of the
+# planted repeat, where no k-mer realigns to its origin)
+REFBUILD_JAX = {
+    'create_ref_data': {
+        '1kGP_high_coverage_Illumina.chr1.filtered.SNV_INDEL_SV_phased_panel.bcf':
+            'd232233c90d5b23c',
+        '1kGP_high_coverage_Illumina.chr1.filtered.SNV_INDEL_SV_phased_panel.bcf.csi':
+            'e3b0c44298fc1c14',
+        '1kGP_high_coverage_Illumina.chr1.filtered.SNV_INDEL_SV_phased_panel.vcf.gz':
+            '20c0b151fedcf3eb',
+        '1kGP_high_coverage_Illumina.chr2.filtered.SNV_INDEL_SV_phased_panel.bcf':
+            'ae941cff78a426d9',
+        '1kGP_high_coverage_Illumina.chr2.filtered.SNV_INDEL_SV_phased_panel.bcf.csi':
+            'e3b0c44298fc1c14',
+        '1kGP_high_coverage_Illumina.chr2.filtered.SNV_INDEL_SV_phased_panel.vcf.gz':
+            '8f389edd2cee78a5',
+        '1kGP_high_coverage_Illumina.chrX.filtered.SNV_INDEL_SV_phased_panel.bcf':
+            '2d9d77d9f0ad6225',
+        '1kGP_high_coverage_Illumina.chrX.filtered.SNV_INDEL_SV_phased_panel.bcf.csi':
+            'e3b0c44298fc1c14',
+        '1kGP_high_coverage_Illumina.chrX.filtered.SNV_INDEL_SV_phased_panel.vcf.gz':
+            '3280e9d95288d636',
+        'Homo_sapiens.GRCh38.93.dna.chromosomes.fa':
+            'a23bf38a171fae26',
+        'Homo_sapiens.GRCh38.93.dna.chromosomes.fa.amb':
+            'e3b0c44298fc1c14',
+        'Homo_sapiens.GRCh38.93.dna.chromosomes.fa.ann':
+            'e3b0c44298fc1c14',
+        'Homo_sapiens.GRCh38.93.dna.chromosomes.fa.bwt':
+            'e3b0c44298fc1c14',
+        'Homo_sapiens.GRCh38.93.dna.chromosomes.fa.fai':
+            '649f20d5b4a2a2bb',
+        'Homo_sapiens.GRCh38.93.dna.chromosomes.fa.pac':
+            'e3b0c44298fc1c14',
+        'Homo_sapiens.GRCh38.93.dna.chromosomes.fa.sa':
+            'e3b0c44298fc1c14',
+        'chr1.b38.gmap.gz':
+            '29135251a232bbbd',
+        'chr2.b38.gmap.gz':
+            '1bae3dce738d2cc0',
+        'chrX.b38.gmap.gz':
+            '0fd9c18feea6b3af',
+        'hg38_gap.txt.gz':
+            'eed3b92a8ed86f49',
+        'sentinal':
+            'e3b0c44298fc1c14',
+        'sentinal.bwa_index':
+            'e3b0c44298fc1c14',
+        'sentinal.convert_bcf':
+            'e3b0c44298fc1c14',
+        'sentinal.create_snp_positions':
+            'e3b0c44298fc1c14',
+        'sentinal.get_genetic_maps':
+            'e3b0c44298fc1c14',
+        'sentinal.samtools_faidx':
+            'e3b0c44298fc1c14',
+        'sentinal.wget_gap_table':
+            'e3b0c44298fc1c14',
+        'sentinal.wget_genome_fasta':
+            'e3b0c44298fc1c14',
+        'sentinal.wget_thousand_genomes':
+            'e3b0c44298fc1c14',
+        'thousand_genomes_snps.tsv':
+            'b47b8321946fbd0c',
+        'tmp/dna.assembly.chromosome.1.fa':
+            '2e22afb0f5dfc239',
+        'tmp/dna.assembly.chromosome.2.fa':
+            '0571af23ee689b58',
+        'tmp/dna.assembly.chromosome.X.fa':
+            'ae0936f5cdafcee8'},
+    'mappability': {
+        '1': {'rows': 10, 'start': '1a406b3a36b7b34d',
+              'end': 'f5caf2b4c1852a25',
+              'quality': '44adec403a800d82'},
+        '2': {'rows': 6, 'start': '378b7746d43c2dee',
+              'end': '67e4df6068d1b842',
+              'quality': 'b9548bf90252aeed'},
+        'X': {'rows': 6, 'start': '60c97425f5e2d2db',
+              'end': '06d1c578dcbfb4a5',
+              'quality': 'edd2aba94bbbd191'}},
+    'empty_chunks': [6]}
+
+
+def refbuild_genome():
+    """Phase 14's genome, made from REFBUILD_SEED: {chromosome: bases}
+    (bytes, upper and lower case) of REFBUILD_CHROMOSOMES, and its gaps
+    [(chromosome, start, end, type)] (runs of N). Chromosome 2 holds a
+    copy of 110 kb of chromosome 1, which is soft-masked there (lower
+    case), and a copy of 3 kb of it; X a tandem repeat of 40 units of 50
+    bases and a soft-masked stretch."""
+    rng = np.random.RandomState(REFBUILD_SEED)
+    acgt = np.frombuffer(b'ACGT', dtype=np.uint8)
+    genome = {chrom: acgt[rng.choice(4, length, p=[0.3, 0.2, 0.2, 0.3])]
+              for chrom, length in REFBUILD_CHROMOSOMES.items()}
+    one, two, x = genome['1'], genome['2'], genome['X']
+    two[40000:150000] = one[60000:170000]
+    two[160000:163000] = one[200000:203000]
+    one[60000:170000] += 32
+    x[30000:32000] = np.tile(x[30000:30050], 40)
+    x[90000:100000] += 32
+    gaps = [('1', 0, 5000, 'telomere'), ('1', 220000, 222500, 'contig'),
+            ('2', 0, 5000, 'telomere'), ('2', 170000, 171000, 'contig'),
+            ('X', 0, 5000, 'telomere'), ('X', 80000, 83000, 'contig')]
+    for chrom, start, end, _ in gaps:
+        genome[chrom][start:end] = ord('N')
+    return {chrom: bases.tobytes() for chrom, bases in genome.items()}, gaps
+
+
+def refbuild_config(built_dir, mappability):
+    """Phase 14's config: the GRCh38 build of its chromosomes, their 1000
+    Genomes panels, REFBUILD_K and the mappability store ``mappability``
+    under ``built_dir``."""
+    config = build_config('GRCh38', REFBUILD_CHROMOSOMES)
+    config.update(grch38_1kg_chromosomes=['chr' + c
+                                          for c in REFBUILD_CHROMOSOMES],
+                  mappability_length=REFBUILD_K,
+                  mappability_filename=os.path.join(built_dir, mappability))
+    return config
+
+
+def write_refbuild_mirror(mirror):
+    """Phase 14's upstream sources in ``mirror``, made from REFBUILD_SEED:
+    the genome's Ensembl FASTAs, its gap table, a 1000 Genomes VCF a
+    chromosome (a SNP about every 700 bases, some multi-allelic, indels,
+    symbolic alleles and SNPs in gaps among them; X under its own name)
+    and the genetic maps' tarball. Returns the genome and its gaps."""
+    import tempfile
+    genome, gaps = refbuild_genome()
+    write_fasta_mirror(mirror, 'GRCh38', [
+        (chrom, len(bases), fasta_lines(bases))
+        for chrom, bases in genome.items()])
+    write_gap_mirror(mirror, [(i, chrom, start, end, i + 1, kind, 'no')
+                              for i, (chrom, start, end, kind)
+                              in enumerate(gaps)])
+    rng = np.random.RandomState(REFBUILD_SEED + 1)
+    for chrom, bases in genome.items():
+        name = ('1kGP_high_coverage_Illumina.chr{}.filtered.SNV_INDEL_SV_'
+                'phased_panel{}.vcf.gz'.format(chrom,
+                                               '.v2' if chrom == 'X' else ''))
+        positions = np.arange(1000, len(bases) - 1000, 700)
+        positions += rng.randint(0, 300, len(positions))
+        with gzip_writer(os.path.join(mirror, name), 'wt') as f:
+            f.write('##fileformat=VCFv4.2\n#CHROM\tPOS\tID\tREF\tALT\t'
+                    'QUAL\tFILTER\tINFO\tFORMAT\tHG00096\n')
+            for i, pos in enumerate(positions.tolist()):
+                ref = chr(bases[pos - 1]).upper()
+                alts = [b for b in 'ACGT' if b != ref]
+                alt = alts[rng.randint(0, len(alts))]
+                if i % 11 == 3:
+                    alt += ',' + alts[0]
+                elif i % 13 == 5:
+                    ref, alt = ref + chr(bases[pos]).upper(), ref
+                elif i % 17 == 7:
+                    alt = '<DEL>'
+                f.write('chr{}\t{}\t.\t{}\t{}\t.\tPASS\t.\tGT\t0|1\n'
+                        .format(chrom, pos, ref, alt))
+    with tempfile.TemporaryDirectory(dir=mirror) as maps:
+        members = []
+        for chrom, bases in genome.items():
+            path = os.path.join(maps, 'chr{}.b38.gmap.gz'.format(chrom))
+            with gzip_writer(path, 'wt') as f:
+                f.write('pos\tchr\tcM\n')
+                f.writelines('{}\t{}\t{!r}\n'.format(p, chrom, p / 1e6)
+                             for p in range(1, len(bases), 10000))
+            members.append((path, os.path.basename(path)))
+        write_tar_mirror(os.path.join(mirror, 'genetic_maps.b38.tar.gz'),
+                         members)
+    return genome, gaps
+
+
+def unique_kmer_truth(genome, k):
+    """{chromosome: 0/1 per position}: 1 where the k-mer starting there
+    (upper case) holds no N and occurs once in the genome; what the
+    ``bwa`` stand-in's alignments make the mappability indicator."""
+    import collections
+    upper = {chrom: bases.upper() for chrom, bases in genome.items()}
+    counts = collections.Counter(
+        bases[p:p + k] for bases in upper.values()
+        for p in range(len(bases) - k + 1))
+    truth = {}
+    for chrom, bases in upper.items():
+        flags = np.zeros(len(bases), dtype=np.uint8)
+        flags[:len(bases) - k + 1] = [
+            counts[bases[p:p + k]] == 1 and b'N' not in bases[p:p + k]
+            for p in range(len(bases) - k + 1)]
+        truth[chrom] = flags
+    return truth
+
+
+def store_arrays(path):
+    """{chromosome: {column: int64 array}} of a mappability store, the
+    JAX package's HDF5 file or the port's directory."""
+    from remixt_tpu_torch.mappability.tasks import STORE_COLUMNS
+    if path.endswith('.h5'):
+        import h5py
+        with h5py.File(path, 'r') as store:
+            return {group[len('chromosome_'):]: {
+                column: store[group][column][()] for column in STORE_COLUMNS}
+                for group in store}
+    return {group[len('chromosome_'):]: {
+        column: np.load(os.path.join(path, group, column + '.npy'))
+        for column in STORE_COLUMNS} for group in sorted(os.listdir(path))}
+
+
+def store_digest(path):
+    """A mappability store's digest: per chromosome its rows and the
+    sha256 (first 16 hex digits) of each column as int64."""
+    return {chrom: dict(rows=len(columns['start']), **{
+        column: hashlib.sha256(np.ascontiguousarray(
+            values, dtype=np.int64).tobytes()).hexdigest()[:16]
+        for column, values in columns.items()})
+        for chrom, columns in sorted(store_arrays(path).items())}
+
+
+@contextlib.contextmanager
+def host_timers(targets):
+    """Swaps the module functions of ``targets`` ((module under
+    ``remixt_tpu_torch``, name, label)) for wrappers that append their
+    wall time to ``stages[label]``; yields ``stages`` and puts every
+    function back."""
+    import importlib
+    stages, originals = {}, []
+    for module, name, label in targets:
+        module = importlib.import_module('remixt_tpu_torch.' + module)
+        fn = getattr(module, name)
+
+        def wrapper(*args, _fn=fn, _label=label, **kwargs):
+            t0 = time.time()
+            out = _fn(*args, **kwargs)
+            stages.setdefault(_label, []).append(time.time() - t0)
+            return out
+        originals.append((module, name, fn))
+        setattr(module, name, wrapper)
+    try:
+        yield stages
+    finally:
+        for module, name, fn in reversed(originals):
+            setattr(module, name, fn)
+
+
+MAPPABILITY_STEPS = (
+    ('mappability.tasks', 'create_kmers', 'create_kmers'),
+    ('mappability.bwa.workflow', '_align_and_bedgraph', 'align_and_bedgraph'),
+    ('mappability.bwa.workflow', '_bwa_mem_to_file', 'bwa mem'),
+    ('mappability.tasks', 'create_bedgraph', 'create_bedgraph'),
+    ('mappability.tasks', 'merge_files_by_line', 'merge_bedgraph'),
+)
+
+
+def mappability_cli(built_dir, config_file, bin_dir):
+    """``mappability_bwa`` through ``ui.main.main`` with
+    REFBUILD_CHUNK_LINES lines a chunk and the stand-ins of ``bin_dir``
+    first on the PATH. Returns {step: [seconds]} and the whole call's
+    seconds."""
+    from remixt_tpu_torch.mappability.bwa import workflow as bwa_workflow
+    from remixt_tpu_torch.ui import main as cli
+    chunk_lines = bwa_workflow.KMERS_PER_CHUNK
+    bwa_workflow.KMERS_PER_CHUNK = REFBUILD_CHUNK_LINES
+    try:
+        with host_timers(MAPPABILITY_STEPS) as stages, \
+                first_on_path(bin_dir):
+            check_standin_wget(bin_dir)
+            t0 = time.time()
+            cli.main(['mappability_bwa', built_dir, '--config', config_file])
+            whole = time.time() - t0
+    finally:
+        bwa_workflow.KMERS_PER_CHUNK = chunk_lines
+    return stages, whole
+
+
+def tool_calls(bin_dir):
+    """The calls the stand-ins of ``bin_dir`` logged since the last look,
+    emptying the log."""
+    path = os.path.join(bin_dir, STANDIN_CALLS)
+    if not os.path.exists(path):
+        return []
+    with open(path) as f:
+        calls = f.read().splitlines()
+    os.remove(path)
+    return calls
+
+
+def phase_reference_build(smi, root=None):
+    """Phase 14 (in ``root``, by default under ``build/chip_smoke``): on
+    phase 14's genome, ``create_ref_data`` on GRCh38 (the genome's FASTA,
+    gap table, bwa and samtools indexes, VCFs converted to BCFs, SNP
+    positions and genetic maps) through ``ui.main.main``, its directory
+    equal to the JAX package's (``REFBUILD_JAX``); then ``mappability_bwa``
+    on the built reference at REFBUILD_K with REFBUILD_CHUNK_LINES a
+    chunk, its store a directory, whose indicator must be the stand-in's
+    truth at every
+    position and whose arrays must be the JAX package's, the chunks of the
+    repeat's second copy giving empty bedgraphs; both again must call no
+    tool. Host only; prints each step's wall time and the peak resident
+    set. Returns the digests."""
+    from remixt_tpu_torch.analysis.gcbias import read_mappability_indicator
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = root or os.path.join(here, 'build', 'chip_smoke', 'refbuild')
+    fresh_directory(root)
+    peak = HostPeak()
+    t_phase = time.time()
+    mirror = os.path.join(root, 'mirror')
+    genome, gaps = write_refbuild_mirror(mirror)
+    mirror_s = time.time() - t_phase
+    bin_dir = write_standin_tools(os.path.join(root, 'bin'), mirror)
+    built = os.path.join(root, 'built')
+    config = refbuild_config(built, 'hg38.{}.bwa.mappability'.format(
+        REFBUILD_K))
+    steps, build_s, config_file = create_ref_data_cli(built, config,
+                                                      bin_dir)
+    digest = tree_digest(built)
+    if digest != REFBUILD_JAX['create_ref_data']:
+        raise AssertionError('phase 14: the create_ref_data directory is not '
+                             'the JAX package\'s: {} against {}'.format(
+                                 digest, REFBUILD_JAX['create_ref_data']))
+    calls = tool_calls(bin_dir)
+    log('phase 14: create_ref_data (GRCh38, {} chromosomes, {:.0f} kb, {} '
+        'gaps; mirror {:.2f} s) {:.2f} s, equal to the JAX package\'s '
+        '({} files, {} tool calls): {}'.format(
+            len(genome), sum(map(len, genome.values())) / 1e3, len(gaps),
+            mirror_s, build_s, len(digest), len(calls), ', '.join(
+                '{} {:.2f} s'.format(name, sec) for name, sec, _ in steps)))
+
+    stages, map_s = mappability_cli(built, config_file, bin_dir)
+    calls = tool_calls(bin_dir)
+    tmp = os.path.join(built, 'mappability_bwa_tmp')
+    bedgraphs = sorted((int(name[len('bedgraph_'):-len('.tsv')]),
+                        os.path.getsize(os.path.join(tmp, name)))
+                       for name in os.listdir(tmp)
+                       if name.startswith('bedgraph_'))
+    empty = [chunk for chunk, size in bedgraphs if size == 0]
+    aligned = [call for call in calls if call.startswith('bwa mem')]
+    if empty != REFBUILD_JAX['empty_chunks'] or len(aligned) != len(bedgraphs):
+        raise AssertionError('phase 14: empty bedgraphs of chunks {} of {} '
+                             '({} bwa mem calls), the JAX run raised on {}'
+                             .format(empty, len(bedgraphs), len(aligned),
+                                     REFBUILD_JAX['empty_chunks']))
+    store = config['mappability_filename']
+    truth = unique_kmer_truth(genome, REFBUILD_K)
+    for chrom, flags in truth.items():
+        indicator = read_mappability_indicator(store, chrom, len(flags), 1)
+        if not np.array_equal(indicator, flags):
+            raise AssertionError('phase 14: chromosome {}\'s mappability '
+                                 'differs from the truth at {} positions'
+                                 .format(chrom, int(np.sum(indicator
+                                                           != flags))))
+    mappability = store_digest(store)
+    if mappability != REFBUILD_JAX['mappability']:
+        raise AssertionError('phase 14: the mappability store is not the JAX '
+                             'package\'s: {} against {}'.format(
+                                 mappability, REFBUILD_JAX['mappability']))
+    log('phase 14: mappability_bwa (k={}, {} chunks of {} k-mers, chunks {} '
+        'wholly repeat: empty bedgraphs) {:.2f} s: {}; its indicator is the '
+        'truth at all {} positions ({} unique), its arrays the JAX '
+        'package\'s ({} intervals)'.format(
+            REFBUILD_K, len(bedgraphs), REFBUILD_CHUNK_LINES // 2, empty,
+            map_s, ', '.join('{} {:.2f} s'.format(
+                label, sum(stages.get(label, [])))
+                for _, _, label in MAPPABILITY_STEPS),
+            sum(map(len, truth.values())),
+            int(sum(f.sum() for f in truth.values())),
+            sum(c['rows'] for c in mappability.values())))
+
+    t0 = time.time()
+    create_ref_data_cli(built, config, bin_dir)
+    mappability_cli(built, config_file, bin_dir)
+    rerun_s = time.time() - t0
+    calls = tool_calls(bin_dir)
+    if calls:
+        raise AssertionError('phase 14: the rerun called {}'.format(calls))
+    log('phase 14: both again in {:.2f} s, no tool called; phase {:.1f} s, '
+        'host peak RSS {:.3f} GB (sampled every 50 ms since the phase '
+        'began, {:.3f} GB at its start); {}'.format(
+            rerun_s, time.time() - t_phase, peak.stop(), peak.start / 1e9,
+            smi))
+    return dict(create_ref_data=digest, mappability=mappability,
+                empty_chunks=empty)
 
 
 # ---------------------------------------------------------------------------
@@ -4885,7 +5654,7 @@ def phase_cohort(smi, fixture):
     here = os.path.dirname(os.path.abspath(__file__))
     root = os.path.join(here, 'build', 'chip_smoke', 'cohort')
     t_phase = time.time()
-    reset = host_peak_reset()
+    peak = HostPeak()
     run = run_cli('phase 13', root, RUN_CHROMOSOMES, RUN_DEPTH,
                   fixture=fixture, tumours=COHORT)
     device_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -4977,8 +5746,8 @@ def phase_cohort(smi, fixture):
     log('phase 13: run CLI {:.1f} s, phase {:.1f} s; max_memory_allocated '
         '{:.3f} GB; host peak RSS {:.3f} GB ({}; this process\'s rusage '
         'maximum {:.3f} GB); {}'.format(
-            run['whole'], time.time() - t_phase, device_gb, host_peak_gb(),
-            'since the phase began' if reset else 'of the whole script',
+            run['whole'], time.time() - t_phase, device_gb, peak.stop(),
+            'sampled every 50 ms since the phase began',
             resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9,
             smi))
     if failures:
@@ -4986,13 +5755,13 @@ def phase_cohort(smi, fixture):
     return expected
 
 
-def _phase_cohort_child(conn, smi, fixture, start):
-    """Phase 13 in a process of its own; sends ('ok', launches) or
-    ('failed', the error) through ``conn``."""
+def _phase_child(conn, phase, args, start):
+    """``phase(*args)`` in a process of its own; sends ('ok', its result)
+    or ('failed', the error) through ``conn``."""
     global START
     START = start
     try:
-        conn.send(('ok', phase_cohort(smi, fixture)))
+        conn.send(('ok', phase(*args)))
     except BaseException as error:
         conn.send(('failed', repr(error)))
         raise
@@ -5000,20 +5769,20 @@ def _phase_cohort_child(conn, smi, fixture, start):
         conn.close()
 
 
-def start_phase_cohort(smi, fixture):
-    """Start phase 13 in a process of its own (``spawn``), beside the
-    phases that follow in this one, for the script's time limit: its run
-    is host work most of the time, as theirs is. Returns a function that
-    waits for it and returns its fb_grouped launches, or raises."""
+def start_phase(label, phase, *args):
+    """Start ``phase(*args)`` in a process of its own (``spawn``), beside
+    the phases that follow in this one, for the script's time limit: the
+    runs of phases 11–13 are host work most of the time. Returns a
+    function that waits for it and returns its result (the fb_grouped
+    launches), or raises."""
     import multiprocessing
     context = multiprocessing.get_context('spawn')
     receiver, sender = context.Pipe(duplex=False)
-    process = context.Process(target=_phase_cohort_child,
-                              args=(sender, smi, fixture, START))
+    process = context.Process(target=_phase_child,
+                              args=(sender, phase, args, START))
     process.start()
     sender.close()
-    log('phase 13: started in process {}, beside phases 11 and 12'.format(
-        process.pid))
+    log('{}: started in process {}'.format(label, process.pid))
 
     def wait():
         try:
@@ -5022,8 +5791,8 @@ def start_phase_cohort(smi, fixture):
             outcome = ('failed', 'its process ended without a result')
         process.join()
         if outcome[0] != 'ok' or process.exitcode != 0:
-            raise AssertionError('phase 13 failed (exit code {}): {}'.format(
-                process.exitcode, outcome[1]))
+            raise AssertionError('{} failed (exit code {}): {}'.format(
+                label, process.exitcode, outcome[1]))
         return outcome[1]
     return wait
 
@@ -5061,18 +5830,21 @@ def main():
     chains_scaled['launches'] = scaled_launches['fb_chains_scaled']
     grouped['launches'] += phase_workflow(data)
     del data, batched_results, sequential_results
-    accuracy_grouped, accuracy_chains = phase_accuracy()
-    grouped['launches'] += accuracy_grouped
-    chains['launches'] += accuracy_chains
-    phase_float64()
     here = os.path.dirname(os.path.abspath(__file__))
     fixture = make_cli_inputs(
         'phases 11 and 13', os.path.join(here, 'build', 'chip_smoke',
                                          'inputs'),
         RUN_CHROMOSOMES, RUN_DEPTH, tumour_b=True)
-    phase_cohort_launches = start_phase_cohort(smi, fixture)
-    grouped['launches'] += phase_run(smi, fixture)
+    phase_cohort_launches = start_phase('phase 13', phase_cohort, smi,
+                                        fixture)
+    accuracy_grouped, accuracy_chains = phase_accuracy()
+    grouped['launches'] += accuracy_grouped
+    chains['launches'] += accuracy_chains
+    phase_float64()
+    phase_run_launches = start_phase('phase 11', phase_run, smi, fixture)
     grouped['launches'] += phase_read_benchmark(smi)
+    phase_reference_build(smi)
+    grouped['launches'] += phase_run_launches()
     grouped['launches'] += phase_cohort_launches()
 
     print(smi)

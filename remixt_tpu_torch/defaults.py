@@ -3,9 +3,10 @@
 A copy of the reference-data names and the algorithm parameters of
 ``remixt_tpu/defaults.py`` (same names and values, so user YAML configs
 carry over). Values are module attributes overlaid by a user config dict
-via :mod:`remixt_tpu_torch.config`. Accelerator knobs of the JAX package
-(Pallas switch, compilation cache, device meshes) and the download URLs
-have no meaning here and are not copied.
+via :mod:`remixt_tpu_torch.config`. The download URLs are the sources
+``ref_data.create_ref_data`` fetches with ``wget``. Accelerator knobs of the
+JAX package (Pallas switch, compilation cache, device meshes) have no
+meaning here and are not copied.
 """
 
 ###
@@ -14,16 +15,25 @@ have no meaning here and are not copied.
 
 ensembl_version = '93'
 ensembl_genome_version = 'GRCh38'
+ensembl_assemblies = [
+    'chromosome.' + c for c in
+    [str(i) for i in range(1, 23)] + ['X', 'Y', 'MT']
+] + ['nonchromosomal']
 
 chromosomes = [str(i) for i in range(1, 23)] + ['X']
 
 chr_name_prefix = ''
+
+ensembl_assembly_url_template = (
+    'ftp://ftp.ensembl.org/pub/release-{ensembl_version}/fasta/homo_sapiens/dna/'
+    'Homo_sapiens.{ensembl_genome_version}.dna.{ensembl_assembly}.fa.gz')
 
 ucsc_genome_version = 'hg38'
 
 genome_fasta_template = '{ref_data_dir}/Homo_sapiens.{ensembl_genome_version}.{ensembl_version}.dna.chromosomes.fa'
 genome_fai_template = '{ref_data_dir}/Homo_sapiens.{ensembl_genome_version}.{ensembl_version}.dna.chromosomes.fa.fai'
 
+gap_url_template = 'http://hgdownload.soe.ucsc.edu/goldenPath/{ucsc_genome_version}/database/gap.txt.gz'
 gap_table_template = '{ref_data_dir}/{ucsc_genome_version}_gap.txt.gz'
 
 # Segment length for automatically generated segments
@@ -44,9 +54,18 @@ mappability_template = '{ref_data_dir}/{ucsc_genome_version}.{mappability_length
 
 # Thousand genomes GRCh38 phased panel
 grch38_1kg_chromosomes = ['chr' + str(i) for i in range(1, 23)] + ['chrX']
+grch38_1kg_vcf_url_template = (
+    'http://ftp.1000genomes.ebi.ac.uk/vol1/ftp/data_collections/1000G_2504_high_coverage/working/'
+    '20220422_3202_phased_SNV_INDEL_SV/1kGP_high_coverage_Illumina.{chromosome}.filtered.SNV_INDEL_SV_phased_panel.vcf.gz')
+grch38_1kg_X_vcf_url = (
+    'http://ftp.1000genomes.ebi.ac.uk/vol1/ftp/data_collections/1000G_2504_high_coverage/working/'
+    '20220422_3202_phased_SNV_INDEL_SV/1kGP_high_coverage_Illumina.chrX.filtered.SNV_INDEL_SV_phased_panel.v2.vcf.gz')
+grch38_1kg_vcf_filename_template = '{ref_data_dir}/1kGP_high_coverage_Illumina.{chromosome}.filtered.SNV_INDEL_SV_phased_panel.vcf.gz'
+grch38_1kg_X_vcf_filename_template = '{ref_data_dir}/1kGP_high_coverage_Illumina.chrX.filtered.SNV_INDEL_SV_phased_panel.vcf.gz'
 grch38_1kg_bcf_filename_template = '{ref_data_dir}/1kGP_high_coverage_Illumina.{chromosome}.filtered.SNV_INDEL_SV_phased_panel.bcf'
 grch38_1kg_X_bcf_filename_template = '{ref_data_dir}/1kGP_high_coverage_Illumina.chrX.filtered.SNV_INDEL_SV_phased_panel.bcf'
 grch38_1kg_phased_chromosome_x = 'chrX'
+genetic_maps_grch38_url = 'https://github.com/odelaneau/shapeit4/blob/master/maps/genetic_maps.b38.tar.gz?raw=true'
 genetic_map_grch38_filename_template = '{ref_data_dir}/{chromosome}.b38.gmap.gz'
 
 snp_positions_template = '{ref_data_dir}/thousand_genomes_snps.tsv'
@@ -54,6 +73,7 @@ snp_positions_template = '{ref_data_dir}/thousand_genomes_snps.tsv'
 # Thousand genomes GRCh37 impute2 panel: the reference of GRCh37 phasing
 # through shapeit2, and the source of the read-level simulation's germline
 # haplotypes
+thousand_genomes_impute_url = 'http://mathgen.stats.ox.ac.uk/impute/ALL_1000G_phase1integrated_v3_impute.tgz'
 thousand_genomes_directory = '{ref_data_dir}/ALL_1000G_phase1integrated_v3_impute'
 sample_template = thousand_genomes_directory + '/ALL_1000G_phase1integrated_v3.sample'
 legend_template = thousand_genomes_directory + '/ALL_1000G_phase1integrated_v3_chr{chromosome}_impute.legend.gz'

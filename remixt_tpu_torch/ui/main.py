@@ -11,14 +11,21 @@
         [--max_proportion_divergent D]
     python3 -m remixt_tpu_torch.ui.main visualize_solutions results.h5 \\
         report.html
+    python3 -m remixt_tpu_torch.ui.main create_ref_data ref_data/ \\
+        [-c config.yaml] [-b]
+    python3 -m remixt_tpu_torch.ui.main mappability_bwa ref_data/ \\
+        [--config config.yaml] [--tmpdir tmp/] [--maxjobs J]
 
-Registers the ``fit``, ``run``, ``write_results`` and
-``visualize_solutions`` subcommands.
+Registers the ``fit``, ``run``, ``write_results``,
+``visualize_solutions``, ``create_ref_data`` and ``mappability_bwa``
+subcommands.
 """
 
 import argparse
 
+import remixt_tpu_torch.ui.create_ref_data
 import remixt_tpu_torch.ui.fit
+import remixt_tpu_torch.ui.mappability_bwa
 import remixt_tpu_torch.ui.run
 import remixt_tpu_torch.ui.visualize_solutions
 import remixt_tpu_torch.ui.write_results
@@ -28,6 +35,8 @@ MODULES = {
     'run': remixt_tpu_torch.ui.run,
     'write_results': remixt_tpu_torch.ui.write_results,
     'visualize_solutions': remixt_tpu_torch.ui.visualize_solutions,
+    'create_ref_data': remixt_tpu_torch.ui.create_ref_data,
+    'mappability_bwa': remixt_tpu_torch.ui.mappability_bwa,
 }
 
 

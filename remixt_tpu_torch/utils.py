@@ -4,13 +4,15 @@ sharding and merging, file plumbing.
 Counterpart of ``weighted_resample``, ``weighted_percentile``,
 ``reverse_complement``, ``read_sequences``, ``read_chromosome_lengths``,
 ``sort_chromosome_names``, ``merge_files``, ``split_table``,
-``merge_tables`` and ``link_file`` of ``remixt_tpu/utils/__init__.py``;
-the table functions work on the text, without pandas.
+``merge_tables``, ``link_file``, ``wget``, ``wget_gunzip`` and
+``AutoSentinal`` of ``remixt_tpu/utils/__init__.py``; the table functions
+work on the text, without pandas.
 """
 
 import csv
 import os
 import shutil
+import subprocess
 
 import numpy as np
 
@@ -138,3 +140,35 @@ def link_file(target_filename, link_filename):
     if os.path.lexists(link_filename):
         os.remove(link_filename)
     os.symlink(os.path.abspath(target_filename), link_filename)
+
+
+def wget(url, filename):
+    """Download ``url`` to ``filename`` with the ``wget`` tool, through a
+    staging file renamed into place (utils.py:196-199)."""
+    staging = filename + '.tmp'
+    subprocess.check_call(['wget', url, '-c', '-O', staging])
+    os.rename(staging, filename)
+
+
+def wget_gunzip(url, filename):
+    """Download a .gz with ``wget`` and decompress it into place with
+    ``gunzip`` (utils.py:189-193)."""
+    staging = filename + '.tmp'
+    subprocess.check_call(['wget', url, '-c', '-O', staging + '.gz'])
+    subprocess.check_call(['gunzip', staging + '.gz'])
+    os.rename(staging, filename)
+
+
+class AutoSentinal:
+    """Runs each step once: a step whose sentinel file (the prefix and the
+    step function's name) exists is skipped, and the sentinel is written
+    when the step returns (utils.py:202-212)."""
+
+    def __init__(self, sentinal_prefix):
+        self.sentinal_prefix = sentinal_prefix
+
+    def run(self, step):
+        marker = self.sentinal_prefix + step.__name__
+        if not os.path.exists(marker):
+            step()
+            open(marker, 'w').close()

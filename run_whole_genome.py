@@ -67,7 +67,7 @@ def main(argv=None):
 
     chromosomes = {c: cs.AUTOSOMES[c] for c in args.chromosomes.split(',')}
     here = os.path.dirname(os.path.abspath(__file__))
-    reset = cs.host_peak_reset()
+    peak = cs.HostPeak()
     t0 = time.time()
     if args.read_benchmark:
         run = cs.read_benchmark(
@@ -109,8 +109,8 @@ def main(argv=None):
         segments=segments, restarts=len(stats['elbo']),
         fb_grouped_launches=expected, run_s=run['whole'],
         total_s=time.time() - t0, device_peak_gb=device_gb,
-        host_peak_gb=cs.host_peak_gb(),
-        host_peak_since='start of the run' if reset else 'process start')
+        host_peak_gb=peak.stop(),
+        host_peak_since='start of the run, sampled every 50 ms')
     if args.read_benchmark:
         summary.update(
             seqdata={sample: cs.seqdata_digest(path)

@@ -188,8 +188,8 @@ def test_main_registers_the_results_subcommands(capsys):
     with pytest.raises(SystemExit) as exit_info:
         torch_main.main(['--help'])
     assert exit_info.value.code == 0
-    assert '{fit,run,write_results,visualize_solutions}' in \
-        capsys.readouterr().out
+    assert ('{fit,run,write_results,visualize_solutions,create_ref_data,'
+            'mappability_bwa}') in capsys.readouterr().out
     for name in ('write_results', 'visualize_solutions'):
         with pytest.raises(SystemExit):
             torch_main.main([name, '--help'])

@@ -208,13 +208,14 @@ def test_rerun_skips_every_task(results):
 
 def test_main_registers_fit_only(capsys):
     """The port's subcommands: ``fit``, ``run`` since the run path was
-    ported, and ``write_results`` and ``visualize_solutions`` since the
-    results CLI was."""
+    ported, ``write_results`` and ``visualize_solutions`` since the
+    results CLI was, and ``create_ref_data`` and ``mappability_bwa`` since
+    the reference build was."""
     with pytest.raises(SystemExit) as exit_info:
         torch_main.main(['--help'])
     assert exit_info.value.code == 0
-    assert '{fit,run,write_results,visualize_solutions}' in \
-        capsys.readouterr().out
+    assert ('{fit,run,write_results,visualize_solutions,create_ref_data,'
+            'mappability_bwa}') in capsys.readouterr().out
 
 
 def test_write_store_without_h5py(monkeypatch, tmp_path):
