@@ -2623,11 +2623,394 @@ main(os.path.basename(sys.argv[0]), sys.argv[1:])
 """
 
 
+# the external callers of the benchmarks' tool comparison (TITAN through
+# Rscript, THetA2's binary and octave's BAF model, filterHD and cloneHD),
+# whose stand-ins ``write_standin_tools`` writes beside the others
+CALLER_STANDIN_TOOLS = ('Rscript', 'RunTHetA', 'octave', 'filterHD',
+                        'cloneHD')
+# TITAN's run script, which only the Rscript stand-in reads
+TITAN_RUN_SCRIPT = 'titan_run.R'
+CALLER_STANDIN_SOURCE = r"""
+# A stand-in for the external callers of the benchmarks' tool comparison:
+# TITAN's Rscript (given a TitanCNA run script), THetA2's binary, octave's
+# runBAFGaussianModel, filterHD and cloneHD. It implements only the calls
+# that the wrappers make: it checks that the files it is handed exist and
+# have the tool's columns, exits non-zero otherwise, and writes the tool's
+# outputs in the tool's format, computed deterministically from those
+# files (per chromosome in sorted order, so that the order of the input
+# rows' chromosomes does not matter). Every call is logged to CALLS.
+import os
+import re
+import sys
+
+import numpy as np
+
+CALLS = '@CALLS@'
+# bins of a segment of the TITAN and cloneHD stand-ins, het SNPs of a
+# cloneHD BAF segment, the least bins or SNPs between two cloneHD breaks
+SEGMENT_BINS, SEGMENT_SNPS, MIN_BREAK = 500, 200, 50
+TOOL = os.path.basename(sys.argv[0])
+
+
+def fail(message):
+    sys.stderr.write('{} stand-in: {}\n'.format(TOOL, message))
+    sys.exit(2)
+
+
+def option(args, name):
+    if name not in args:
+        fail('no {} in {}'.format(name, args))
+    return args[args.index(name) + 1]
+
+
+def rows(path, columns, header=False):
+    # the fields of a table's lines, each line with ``columns`` fields
+    if not os.path.isfile(path):
+        fail('no such file {}'.format(path))
+    with open(path) as f:
+        lines = [line.split() for line in f if line.strip()]
+    if header:
+        lines = lines[1:]
+    for i, fields in enumerate(lines):
+        if len(fields) != columns:
+            fail('{}: line {} has {} fields, not {}'.format(
+                path, i + 1, len(fields), columns))
+    return lines
+
+
+def by_chromosome(lines, columns):
+    # {chromosome: int64 array of the named columns}, chromosomes sorted
+    grouped = {}
+    for fields in lines:
+        grouped.setdefault(fields[0], []).append(
+            [int(fields[c]) for c in columns])
+    return {c: np.array(grouped[c], dtype=np.int64).reshape(-1, len(columns))
+            for c in sorted(grouped)}
+
+
+def read_wig(path):
+    # (step, {chromosome: counts}) of a fixed-step WIG track
+    if not os.path.isfile(path):
+        fail('no such file {}'.format(path))
+    tracks, chromosome, step = {}, None, None
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if line.startswith('fixedStep'):
+                fields = dict(field.split('=', 1)
+                              for field in line.split()[1:])
+                if sorted(fields) != ['chrom', 'span', 'start', 'step']:
+                    fail('{}: bad header {!r}'.format(path, line))
+                chromosome, step = fields['chrom'], int(fields['step'])
+                tracks[chromosome] = []
+            elif line:
+                if chromosome is None or not line.isdigit():
+                    fail('{}: bad line {!r}'.format(path, line))
+                tracks[chromosome].append(int(line))
+    return step, {c: np.array(tracks[c], dtype=np.int64)
+                  for c in sorted(tracks)}
+
+
+def ratio(part, whole, ref_part, ref_whole):
+    # (part / whole) / (ref_part / ref_whole), from integers
+    if not ref_part or not whole:
+        return 1.0
+    return (part * ref_whole) / (ref_part * whole)
+
+
+def titan(args):
+    # script alleles tumour.wig normal.wig clusters ploidy normal_init
+    # cn.tsv params.txt
+    if len(args) != 9:
+        fail('{} arguments, not 9'.format(len(args)))
+    script, alleles, tumour_wig, normal_wig = args[:4]
+    clusters, ploidy, normal_init = int(args[4]), float(args[5]), float(
+        args[6])
+    if not os.path.isfile(script):
+        fail('no run script {}'.format(script))
+    het = by_chromosome(rows(alleles, 6), (1, 3, 5))
+    step, tumour = read_wig(tumour_wig)
+    normal_step, normal = read_wig(normal_wig)
+    if step != normal_step or list(tumour) != list(normal) or any(
+            len(tumour[c]) != len(normal[c]) for c in tumour):
+        fail('the tumour and normal tracks differ in their bins')
+    T = sum(int(t.sum()) for t in tumour.values())
+    N = sum(int(n.sum()) for n in normal.values())
+    minor_all = sum(int(np.minimum(h[:, 1], h[:, 2]).sum())
+                    for h in het.values())
+    reads_all = sum(int(h[:, 1:].sum()) for h in het.values())
+    segments, residuals = [], []
+    for chromosome in tumour:
+        t, n = tumour[chromosome], normal[chromosome]
+        h = het.get(chromosome, np.zeros((0, 3), dtype=np.int64))
+        for b0 in range(0, len(t), SEGMENT_BINS):
+            b1 = min(b0 + SEGMENT_BINS, len(t))
+            level = ploidy * ratio(int(t[b0:b1].sum()), T,
+                                   int(n[b0:b1].sum()), N)
+            total = int(min(max(round(level), 0), 8))
+            inside = (h[:, 0] >= b0 * step) & (h[:, 0] < b1 * step)
+            reads = int(h[inside, 1:].sum())
+            baf = (int(np.minimum(h[inside, 1], h[inside, 2]).sum()) / reads
+                   if reads else 0.5)
+            minor = min(int(round(total * baf)), total // 2)
+            k = len(segments)
+            cluster = ('' if k % 4 == 3 else
+                       '2' if clusters == 2 and k % 4 == 1 else '1')
+            segments.append((chromosome, b0 * step + 1, b1 * step, total,
+                             total - minor, minor, cluster))
+            residuals.append(abs(level - total))
+    with open(args[7], 'w') as f:
+        f.write('Chromosome\tStart_Position(bp)\tEnd_Position(bp)\t'
+                'Copy_Number\tMajorCN\tMinorCN\tClonal_Cluster\n')
+        f.writelines('\t'.join(map(str, row)) + '\n' for row in segments)
+    normal_est = min(max(normal_init * 2 * N / (N + T), 0.05), 0.95)
+    prevalence = min(0.5 + (minor_all / reads_all if reads_all else 0.25),
+                     0.99)
+    prevalences = [prevalence, prevalence * (0.35 + 0.05 * ploidy)]
+    sdbw = (sum(residuals) / max(len(residuals), 1) + 0.1 / clusters
+            + 0.01 * ploidy)
+    with open(args[8], 'w') as f:
+        f.write('Normal contamination estimate: {:.6f}\n'.format(normal_est))
+        f.write('Average tumour ploidy estimate: {:.6f}\n'.format(
+            ploidy * T / max(N, 1)))
+        f.write('Clonal cluster cellular prevalence Z={}: {}\n'.format(
+            clusters, ' '.join('{:.6f}'.format(p)
+                               for p in prevalences[:clusters])))
+        f.write('S_Dbw validity index: {:.6f}\n'.format(sdbw))
+
+
+def theta_counts(path):
+    # (chromosome index, tumour, normal, upper bound) columns of THetA's
+    # interval counts
+    table = np.array([[int(v) for v in fields]
+                      for fields in rows(path, 8)], dtype=np.int64)
+    return table.reshape(-1, 8)[:, [1, 4, 5, 6]]
+
+
+def theta(args):
+    # counts --FORCE --NUM_INTERVALS n --OUTPUT_PREFIX prefix: n2 and n3
+    # results, the n3 file with three candidate solutions of two clones
+    counts = theta_counts(args[0])
+    if '--FORCE' not in args or int(option(args, '--NUM_INTERVALS')) < 1:
+        fail('unexpected arguments {}'.format(args))
+    prefix = option(args, '--OUTPUT_PREFIX')
+    T, N = int(counts[:, 1].sum()), int(counts[:, 2].sum())
+    level = np.array([2 * ratio(int(t), T, int(n), N)
+                      for t, n in counts[:, 1:3]])
+    clone_1 = np.minimum(np.maximum(np.round(level), 0),
+                         counts[:, 3]).astype(int)
+    header = '#NLL\tmu\tC\tp*\n'
+    with open(prefix + '.n2.results', 'w') as f:
+        nll = float(((level - clone_1) ** 2).sum())
+        f.write(header + '{:.6f}\t{:.6f},{:.6f}\t{}\t-\n'.format(
+            nll, N / (N + T), T / (N + T), ':'.join(map(str, clone_1))))
+    lines = []
+    for r in range(3):
+        mu_n = min(max(N / (N + T) + 0.1 * (r - 1), 0.05), 0.9)
+        clone_2 = np.where((np.arange(len(clone_1)) + r) % 3 == 0, 2,
+                           clone_1)
+        nll = float(((level - 0.6 * clone_1 - 0.4 * clone_2) ** 2).sum()
+                    * 100 + 0.5 * r)
+        lines.append('{:.6f}\t{:.6f},{:.6f},{:.6f}\t{}\t-\n'.format(
+            nll, mu_n, (1 - mu_n) * 0.6, (1 - mu_n) * 0.4,
+            ':'.join('{},{}'.format(a, b) for a, b in zip(clone_1, clone_2))))
+    with open(prefix + '.n3.results', 'w') as f:
+        f.write(header + ''.join(lines))
+
+
+def minor_fraction(table):
+    # the share of minor-allele reads of THetA allele rows
+    ref, alt = table[:, 7], table[:, 8]
+    total = int((ref + alt).sum())
+    return int(np.minimum(ref, alt).sum()) / total if total else 0.5
+
+
+def octave(args):
+    # --eval "cd DIR; runBAFGaussianModel(tumour, normal, counts, results,
+    # [chromosomes], prefix, [11,8], 'none')": prefix.BAF.NLL.results, the
+    # results' rows with a BAF_NLL column
+    match = re.fullmatch(r"cd (\S+); runBAFGaussianModel\((.*)\)",
+                         args[1] if len(args) == 2 else '')
+    if args[:1] != ['--eval'] or match is None:
+        fail('unexpected arguments {}'.format(args))
+    if not os.path.isdir(match.group(1)):
+        fail('no directory {}'.format(match.group(1)))
+    tokens = match.group(2).split(', ')
+    if len(tokens) != 8 or tokens[6:] != ['[11,8]', "'none'"]:
+        fail('unexpected model arguments {}'.format(tokens))
+    tumour, normal, counts, results = [t.strip("'") for t in tokens[:4]]
+    fractions = []
+    for path in (tumour, normal):
+        table = np.array([[int(v) for v in fields]
+                          for fields in rows(path, 9)], dtype=np.int64)
+        fractions.append(minor_fraction(table.reshape(-1, 9)))
+    chromosomes = sorted(set(theta_counts(counts)[:, 0].tolist()))
+    if tokens[4] != '[' + ','.join(map(str, chromosomes)) + ']':
+        fail('chromosomes {} are not those of {}'.format(tokens[4], counts))
+    solutions = rows(results, 4, header=True)
+    with open(tokens[5].strip("'") + '.BAF.NLL.results', 'w') as f:
+        f.write('#NLL\tmu\tC\tp*\tBAF_NLL\n')
+        for nll, mu, copies, p in solutions:
+            mu_n = float(mu.split(',')[0])
+            baf_nll = 1000 * abs(fractions[0] - fractions[1] * (
+                mu_n + (1 - mu_n) * 0.8)) + 0.01 * copies.count(':')
+            f.write('\t'.join([nll, mu, copies, p,
+                               '{:.6f}'.format(baf_nll)]) + '\n')
+
+
+def smooth(values, window=25):
+    kernel = np.ones(window)
+    return (np.convolve(values, kernel, 'same')
+            / np.convolve(np.ones(len(values)), kernel, 'same'))
+
+
+def filterhd(args):
+    # --data track --mode 3|1 --pre prefix [--bias posterior] [--jumps 1]
+    # [--reflect 1]: prefix.posterior-1.txt (chromosome, locus, smoothed
+    # value) and, with jumps, prefix.jumps.txt (chromosome, locus, jump
+    # probability)
+    data = by_chromosome(rows(option(args, '--data'), 4), (1, 2, 3))
+    mode, prefix = option(args, '--mode'), option(args, '--pre')
+    if mode not in ('1', '3') or option(args, '--rnd') != '0':
+        fail('unexpected arguments {}'.format(args))
+    bias = {}
+    if '--bias' in args:
+        for fields in rows(option(args, '--bias'), 3):
+            bias[(fields[0], int(fields[1]))] = float(fields[2])
+    posterior, jumps = [], []
+    for chromosome, table in data.items():
+        loci = table[:, 0]
+        if mode == '3':
+            values = table[:, 1].astype(float)
+        else:
+            values = table[:, 1] / np.maximum(table[:, 2], 1)
+            if option(args, '--reflect') == '1':
+                values = np.minimum(values, 1 - values)
+        if bias:
+            values = values / np.array([
+                max(bias.get((chromosome, int(locus)), 1.0), 1e-3)
+                for locus in loci])
+        smoothed = smooth(values)
+        step = np.abs(np.diff(smoothed, prepend=smoothed[:1]))
+        jump = step > 0.2 * max(float(smoothed.mean()), 1e-9)
+        posterior += ['{}\t{}\t{:.6g}\n'.format(chromosome, locus, value)
+                      for locus, value in zip(loci, smoothed)]
+        jumps += ['{}\t{}\t{}\n'.format(chromosome, locus, float(j))
+                  for locus, j in zip(loci, jump)]
+    with open(prefix + '.posterior-1.txt', 'w') as f:
+        f.writelines(posterior)
+    if '--jumps' in args and option(args, '--jumps') == '1':
+        with open(prefix + '.jumps.txt', 'w') as f:
+            f.writelines(jumps)
+
+
+def breaks(loci, jump_loci, size):
+    # segment starts: every ``size`` loci, and at a jump at least
+    # MIN_BREAK loci past the last start
+    starts = [0]
+    for i in range(1, len(loci)):
+        if i - starts[-1] >= size or (
+                loci[i] in jump_loci and i - starts[-1] >= MIN_BREAK):
+            starts.append(i)
+    return starts + [len(loci)]
+
+
+def posterior_line(chromosome, first, last, nloci, call, k, columns):
+    # a posterior row peaked at ``call``: on every 7th segment a tie with
+    # the next column (the first wins), on every 4th a NaN cell
+    p = [0.02] * columns
+    p[call] = 0.8
+    if k % 7 == 5 and call + 1 < columns:
+        p[call + 1] = 0.8
+    if k % 4 == 2 and call != columns - 1:
+        p[columns - 1] = float('nan')
+    return '{} {} {} {} {}\n'.format(chromosome, first, last, nloci, ' '.join(
+        'nan' if v != v else '{:.4f}'.format(v) for v in p))
+
+
+def clonehd(args):
+    # --cna --baf --pre --bias --cna-jumps --baf-jumps ... --max-tcn n:
+    # prefix.summary.txt and each clone's CNA and BAF posteriors
+    cna = by_chromosome(rows(option(args, '--cna'), 4), (1, 2))
+    baf = by_chromosome(rows(option(args, '--baf'), 4), (1, 2, 3))
+    bias = {}
+    for fields in rows(option(args, '--bias'), 3):
+        bias[(fields[0], int(fields[1]))] = float(fields[2])
+    jump_loci = []
+    for name in ('--cna-jumps', '--baf-jumps'):
+        found = {}
+        for fields in rows(option(args, name), 3):
+            if float(fields[2]) >= 0.5:
+                found.setdefault(fields[0], set()).add(int(fields[1]))
+        jump_loci.append(found)
+    prefix, max_tcn = option(args, '--pre'), int(option(args, '--max-tcn'))
+    columns = max_tcn + 1
+    T = sum(int(t[:, 1].sum()) for t in cna.values())
+    B = sum(bias.values())
+    minor_all = sum(int(b[:, 1].sum()) for b in baf.values())
+    reads_all = sum(int(b[:, 2].sum()) for b in baf.values())
+    header = '#chr first-locus last-locus nloci {}\n'.format(
+        ' '.join(map(str, range(columns))))
+    clones = [dict(cna=[header], baf=[header]) for _ in range(2)]
+    k = 0
+    for chromosome, table in cna.items():
+        loci, counts = table[:, 0], table[:, 1]
+        starts = breaks(loci.tolist(), jump_loci[0].get(chromosome, ()),
+                        SEGMENT_BINS)
+        for a, b in zip(starts[:-1], starts[1:]):
+            expected = sum(bias.get((chromosome, int(locus)), 0.0)
+                           for locus in loci[a:b])
+            level = 2 * ((int(counts[a:b].sum()) / T) / (expected / B)
+                         if expected and T else 1.0)
+            total = int(min(max(round(level), 0), max_tcn))
+            for clone, call in ((0, total), (1, total if k % 3 else 2)):
+                clones[clone]['cna'].append(posterior_line(
+                    chromosome, loci[a], loci[b - 1], b - a, call, k,
+                    columns))
+            k += 1
+    for chromosome, table in baf.items():
+        loci = table[:, 0]
+        starts = breaks(loci.tolist(), jump_loci[1].get(chromosome, ()),
+                        SEGMENT_SNPS)
+        for a, b in zip(starts[:-1], starts[1:]):
+            reads = int(table[a:b, 2].sum())
+            fraction = int(table[a:b, 1].sum()) / reads if reads else 0.5
+            allele = (max_tcn if k % 5 == 2 else
+                      int(min(max(round(4 * fraction), 0), max_tcn)))
+            for clone, call in ((0, allele), (1, allele if k % 3 else 1)):
+                clones[clone]['baf'].append(posterior_line(
+                    chromosome, loci[a], loci[b - 1], b - a, call, k,
+                    columns))
+            k += 1
+    for clone, tables in enumerate(clones, 1):
+        for kind, lines in tables.items():
+            with open('{}.{}.subclone-{}.txt'.format(prefix, kind, clone),
+                      'w') as f:
+                f.writelines(lines)
+    fraction_all = minor_all / reads_all if reads_all else 0.25
+    with open(prefix + '.summary.txt', 'w') as f:
+        f.write('# 2 clones\n{:.6f} {:.6f} {:.6f}\n'.format(
+            T / max(sum(len(t) for t in cna.values()), 1),
+            0.3 + 0.3 * fraction_all, 0.15 + 0.1 * fraction_all))
+
+
+def main(args):
+    with open(CALLS, 'a') as f:
+        f.write(' '.join([TOOL] + args) + '\n')
+    {'Rscript': titan, 'RunTHetA': theta, 'octave': octave,
+     'filterHD': filterhd, 'cloneHD': clonehd}[TOOL](args)
+
+
+main(sys.argv[1:])
+"""
+
+
 def write_standin_tools(bin_dir, mirror_dir=None):
-    """Executable stand-ins of ``STANDIN_TOOLS`` in ``bin_dir`` (for the
-    front of PATH), logging every call to ``bin_dir/STANDIN_CALLS``; their
-    ``wget`` serves the files of ``mirror_dir`` (none without one).
-    Returns ``bin_dir``."""
+    """Executable stand-ins of ``STANDIN_TOOLS`` and of the external callers
+    ``CALLER_STANDIN_TOOLS`` in ``bin_dir`` (for the front of PATH), with
+    TITAN's run script ``TITAN_RUN_SCRIPT``, logging every call to
+    ``bin_dir/STANDIN_CALLS``; their ``wget`` serves the files of
+    ``mirror_dir`` (none without one). Returns ``bin_dir``."""
     os.makedirs(bin_dir, exist_ok=True)
     source = '#!{} -S\n'.format(sys.executable) + STANDIN_SOURCE.replace(
         '@SWITCH_EVERY@', str(SWITCH_EVERY)).replace(
@@ -2636,12 +3019,47 @@ def write_standin_tools(bin_dir, mirror_dir=None):
     ).replace('@MIRROR@', repr(mirror_dir and os.path.abspath(mirror_dir))
               ).replace('@CALLS@', os.path.abspath(os.path.join(
                   bin_dir, STANDIN_CALLS)))
-    for tool in STANDIN_TOOLS:
-        path = os.path.join(bin_dir, tool)
-        with open(path, 'w') as f:
-            f.write(source)
-        os.chmod(path, 0o755)
+    calls = os.path.abspath(os.path.join(bin_dir, STANDIN_CALLS))
+    callers = '#!{}\n'.format(sys.executable) + CALLER_STANDIN_SOURCE.replace(
+        '@CALLS@', calls)
+    for tools, text in ((STANDIN_TOOLS, source),
+                        (CALLER_STANDIN_TOOLS, callers)):
+        for tool in tools:
+            path = os.path.join(bin_dir, tool)
+            with open(path, 'w') as f:
+                f.write(text)
+            os.chmod(path, 0o755)
+    with open(os.path.join(bin_dir, TITAN_RUN_SCRIPT), 'w') as f:
+        f.write('# TitanCNA run script: the Rscript stand-in reads only '
+                'its arguments\n')
     return bin_dir
+
+
+def caller_config(bin_dir, segments_filename):
+    """The config keys of the external callers for the stand-ins of
+    ``bin_dir``, THetA on the segmentation ``segments_filename``."""
+    bin_dir = os.path.abspath(bin_dir)
+    return {
+        'titan': {'run_script': os.path.join(bin_dir, TITAN_RUN_SCRIPT)},
+        'theta': {'bin': os.path.join(bin_dir, 'RunTHetA'),
+                  'octave_bin_directory': bin_dir,
+                  'segments_filename': os.path.abspath(segments_filename)},
+        'clonehd': {'filterhd_bin': os.path.join(bin_dir, 'filterHD'),
+                    'clonehd_bin': os.path.join(bin_dir, 'cloneHD')},
+    }
+
+
+def write_window_segments(path, chromosome_lengths, window):
+    """A segmentation of fixed windows of ``window`` bases over the
+    chromosomes, the last of each cut at its end, as a TSV of chromosome,
+    start and end (THetA's ``segments_filename``)."""
+    with open(path, 'w') as f:
+        f.write('chromosome\tstart\tend\n')
+        for chromosome, length in chromosome_lengths.items():
+            for start in range(0, length, window):
+                f.write('{}\t{}\t{}\n'.format(
+                    chromosome, start, min(start + window, length)))
+    return path
 
 
 BGZF_EOF = bytes([
@@ -3758,7 +4176,26 @@ READ_STEPS = (
     ('simulations.pipeline', 'simulate_normal_data', 'normal reads'),
     ('simulations.pipeline', 'simulate_tumour_data', 'tumour reads'),
     ('simulations.pipeline', 'evaluate_results_task', 'evaluate'),
-) + RUN_STEPS[2:]
+) + RUN_STEPS[2:] + tuple(
+    ('wrappers.wrapexternal', '_{}_{}'.format(tool, stage),
+     '{} {}'.format(tool, stage.split('_')[0]))
+    for tool in ('titan', 'theta', 'clonehd')
+    for stage in ('prepare', 'run_all' if tool == 'titan' else 'run',
+                  'report'))
+# the external callers the read benchmark compares with ReMixT, each run by
+# its wrapper through the stand-ins of ``write_standin_tools``; THetA on
+# fixed windows of READ_THETA_WINDOW bases
+READ_TOOLS = ('titan', 'theta', 'clonehd')
+READ_THETA_WINDOW = 1000000
+# each external tool's stand-ins, and the files its wrapper writes for them
+TOOL_STANDINS = {'titan': ('Rscript',), 'theta': ('RunTHetA', 'octave'),
+                 'clonehd': ('filterHD', 'cloneHD')}
+TOOL_INPUTS = {
+    'titan': ('alleles.tsv', 'normal.wig', 'tumour.wig'),
+    'theta': ('chrom_names.tsv', 'counts.tsv', 'normal_alleles.tsv',
+              'tumour_alleles.tsv'),
+    'clonehd': ('normal.cna.txt', 'tumour.cna.txt', 'tumour.baf.txt'),
+}
 # what the JAX package makes of phase 12's inputs on the CPU, on the
 # GRCh37 reference (``python tests/test_torch_read_benchmark.py --phase12
 # WORKDIR``): the digests of its simulated seqdata (``seqdata_digest``) and
@@ -4082,6 +4519,181 @@ READ_JAX = {'seqdata': {'normal': {'fragments': {'rows': 6498399,
                                              'mix_pred_1': 0.2834046185016632,
                                              'mix_pred_2': 0.12860794365406036}}}}
 
+# the external tools of phase 12's read benchmark as the JAX runner runs
+# them through the stand-ins on the same inputs (``python
+# tests/test_torch_read_benchmark.py --phase12 WORKDIR --tools``;
+# ``tool_record``: input digests, stand-in calls, results, evaluation)
+READ_JAX['tools'] = {'titan': {'inputs': {'alleles.tsv': '5aae403a3e50fffb',
+                                          'normal.wig': '0baec12c2682895b',
+                                          'tumour.wig': '445678bc27fc1680'},
+                               'calls': ['Rscript @BIN@/titan_run.R '
+                                         '@SIM@/titan/alleles.tsv @SIM@/titan/tumour.wig '
+                                         '@SIM@/titan/normal.wig 1 2.0 0.5 '
+                                         '@SIM@/titan/restart_0/cn.tsv '
+                                         '@SIM@/titan/restart_0/params.txt',
+                                         'Rscript @BIN@/titan_run.R '
+                                         '@SIM@/titan/alleles.tsv @SIM@/titan/tumour.wig '
+                                         '@SIM@/titan/normal.wig 2 2.0 0.5 '
+                                         '@SIM@/titan/restart_1/cn.tsv '
+                                         '@SIM@/titan/restart_1/params.txt',
+                                         'Rscript @BIN@/titan_run.R '
+                                         '@SIM@/titan/alleles.tsv @SIM@/titan/tumour.wig '
+                                         '@SIM@/titan/normal.wig 1 4.0 0.5 '
+                                         '@SIM@/titan/restart_2/cn.tsv '
+                                         '@SIM@/titan/restart_2/params.txt',
+                                         'Rscript @BIN@/titan_run.R '
+                                         '@SIM@/titan/alleles.tsv @SIM@/titan/tumour.wig '
+                                         '@SIM@/titan/normal.wig 2 4.0 0.5 '
+                                         '@SIM@/titan/restart_3/cn.tsv '
+                                         '@SIM@/titan/restart_3/params.txt'],
+                               'cn': {'rows': 327,
+                                      'columns': ['chromosome',
+                                                  'start',
+                                                  'end',
+                                                  'total_1',
+                                                  'major_1',
+                                                  'minor_1',
+                                                  'total_2',
+                                                  'major_2',
+                                                  'minor_2'],
+                                      'sha256': '3c7266c99913e936'},
+                               'mix': [0.464546, 0.201473134764, 0.24624512097399998],
+                               'evaluation': {'proportion_cn_correct': 0.24433650461917147,
+                                              'proportion_dom_cn_correct': 0.44161852025118803,
+                                              'proportion_clonal_correct': 0.4087115992503591,
+                                              'proportion_subclonal_correct': 0.4087115992503591,
+                                              'pred_ploidy': 2.0027418099757863,
+                                              'pred_ploidy_1': 2.0073583315645864,
+                                              'pred_ploidy_2': 1.9981252883869862,
+                                              'pred_proportion_divergent': 0.050781737476801474,
+                                              'true_ploidy': 2.515513728719378,
+                                              'true_ploidy_1': 2.4948783899293545,
+                                              'true_ploidy_2': 2.5361490675094016,
+                                              'true_proportion_divergent': 0.34749374450840576,
+                                              'brk_cn_correct_proportion': 0.5384615384615384,
+                                              'brk_cn_present_num_true': 102.0,
+                                              'brk_cn_present_num_pos': 0.0,
+                                              'brk_cn_present_num_true_pos': 0.0,
+                                              'brk_cn_subclonal_num_true': 68.0,
+                                              'brk_cn_subclonal_num_pos': 0.0,
+                                              'brk_cn_subclonal_num_true_pos': 0.0,
+                                              'mix_true_0': 0.4,
+                                              'mix_true_1': 0.4,
+                                              'mix_true_2': 0.19999999999999996,
+                                              'mix_pred_0': 0.464546,
+                                              'mix_pred_1': 0.24624512097399998,
+                                              'mix_pred_2': 0.201473134764}},
+                     'theta': {'inputs': {'chrom_names.tsv': 'f55f66a6f77cb815',
+                                          'counts.tsv': '2d4422c1be21f6c6',
+                                          'normal_alleles.tsv': 'ef740181f2051e86',
+                                          'tumour_alleles.tsv': 'bf195378d67cd678'},
+                               'calls': ['RunTHetA @SIM@/theta/counts.tsv --FORCE '
+                                         '--NUM_INTERVALS 15 --OUTPUT_PREFIX '
+                                         '@SIM@/theta/theta',
+                                         'octave --eval cd @BIN@; '
+                                         "runBAFGaussianModel('@SIM@/theta/tumour_alleles.tsv', "
+                                         "'@SIM@/theta/normal_alleles.tsv', "
+                                         "'@SIM@/theta/counts.tsv', "
+                                         "'@SIM@/theta/theta.n3.results', [0,1,2], "
+                                         "'@SIM@/theta/theta2', [11,8], 'none')"],
+                               'cn': {'rows': 165,
+                                      'columns': ['chromosome',
+                                                  'start',
+                                                  'end',
+                                                  'total_1',
+                                                  'total_2'],
+                                      'sha256': '4992015d5a4d847a'},
+                               'mix': [0.464558, 0.321265, 0.214177],
+                               'evaluation': {'proportion_cn_correct': 0.25442526058155823,
+                                              'proportion_dom_cn_correct': 0.48806322955312914,
+                                              'proportion_clonal_correct': 0.4311248996145088,
+                                              'proportion_subclonal_correct': 0.4311248996145088,
+                                              'pred_ploidy': 1.986751918923344,
+                                              'pred_ploidy_1': 1.985814561925869,
+                                              'pred_ploidy_2': 1.987689275920819,
+                                              'pred_proportion_divergent': 0.04402489127460873,
+                                              'true_ploidy': 2.5155137375031456,
+                                              'true_ploidy_1': 2.4948783971604676,
+                                              'true_ploidy_2': 2.5361490778458236,
+                                              'true_proportion_divergent': 0.27766171534884027,
+                                              'brk_cn_correct_proportion': 0.5384615384615384,
+                                              'brk_cn_present_num_true': 102.0,
+                                              'brk_cn_present_num_pos': 0.0,
+                                              'brk_cn_present_num_true_pos': 0.0,
+                                              'brk_cn_subclonal_num_true': 68.0,
+                                              'brk_cn_subclonal_num_pos': 0.0,
+                                              'brk_cn_subclonal_num_true_pos': 0.0,
+                                              'mix_true_0': 0.4,
+                                              'mix_true_1': 0.4,
+                                              'mix_true_2': 0.19999999999999996,
+                                              'mix_pred_0': 0.464558,
+                                              'mix_pred_1': 0.321265,
+                                              'mix_pred_2': 0.214177}},
+                     'clonehd': {'inputs': {'normal.cna.txt': '043fe463ec19d6d0',
+                                            'tumour.cna.txt': '5e004e0c80ff4e44',
+                                            'tumour.baf.txt': '3f1e9a26d88ef6bb'},
+                                 'calls': ['filterHD --data @SIM@/clonehd/normal.cna.txt '
+                                           '--mode 3 --pre @SIM@/clonehd/normal.cna --rnd '
+                                           '0',
+                                           'filterHD --data @SIM@/clonehd/tumour.cna.txt '
+                                           '--mode 3 --pre @SIM@/clonehd/tumour.cna --rnd '
+                                           '0',
+                                           'filterHD --data @SIM@/clonehd/tumour.cna.txt '
+                                           '--mode 3 --pre @SIM@/clonehd/tumour.cna.bias '
+                                           '--bias '
+                                           '@SIM@/clonehd/normal.cna.posterior-1.txt '
+                                           '--sigma 0 --jumps 1 --rnd 0',
+                                           'filterHD --data @SIM@/clonehd/tumour.baf.txt '
+                                           '--mode 1 --pre @SIM@/clonehd/tumour.baf '
+                                           '--sigma 0 --jumps 1 --reflect 1 --dist 1 --rnd '
+                                           '0',
+                                           'cloneHD --cna @SIM@/clonehd/tumour.cna.txt '
+                                           '--baf @SIM@/clonehd/tumour.baf.txt --pre '
+                                           '@SIM@/clonehd/tumour --bias '
+                                           '@SIM@/clonehd/normal.cna.posterior-1.txt '
+                                           '--seed 123 --trials 2 --nmax 3 --force 2 '
+                                           '--max-tcn 4 --cna-jumps '
+                                           '@SIM@/clonehd/tumour.cna.bias.jumps.txt '
+                                           '--baf-jumps @SIM@/clonehd/tumour.baf.jumps.txt '
+                                           '--min-jump 0.01 --restarts 10 --mass-gauging '
+                                           '1'],
+                                 'cn': {'rows': 585,
+                                        'columns': ['chromosome',
+                                                    'start',
+                                                    'end',
+                                                    'major_1',
+                                                    'minor_1',
+                                                    'total_1',
+                                                    'major_2',
+                                                    'minor_2',
+                                                    'total_2'],
+                                        'sha256': '1a076c66fbeab6bc'},
+                                 'mix': [0.41554100000000005, 0.400844, 0.183615],
+                                 'evaluation': {'proportion_cn_correct': 0.16088084121392746,
+                                                'proportion_dom_cn_correct': 0.34145724306990466,
+                                                'proportion_clonal_correct': 0.4195519308190693,
+                                                'proportion_subclonal_correct': 0.4195519308190693,
+                                                'pred_ploidy': 2.3335109316531786,
+                                                'pred_ploidy_1': 2.394204500998897,
+                                                'pred_ploidy_2': 2.27281736230746,
+                                                'pred_proportion_divergent': 0.10963545442254068,
+                                                'true_ploidy': 2.515812055997883,
+                                                'true_ploidy_1': 2.4953441812183312,
+                                                'true_ploidy_2': 2.536279930777435,
+                                                'true_proportion_divergent': 0.34754929510562865,
+                                                'brk_cn_correct_proportion': 0.5384615384615384,
+                                                'brk_cn_present_num_true': 102.0,
+                                                'brk_cn_present_num_pos': 0.0,
+                                                'brk_cn_present_num_true_pos': 0.0,
+                                                'brk_cn_subclonal_num_true': 68.0,
+                                                'brk_cn_subclonal_num_pos': 0.0,
+                                                'brk_cn_subclonal_num_true_pos': 0.0,
+                                                'mix_true_0': 0.4,
+                                                'mix_true_1': 0.4,
+                                                'mix_true_2': 0.19999999999999996,
+                                                'mix_pred_0': 0.41554100000000005,
+                                                'mix_pred_1': 0.400844,
+                                                'mix_pred_2': 0.183615}}}
 
 def read_sim_defs(chromosome_lengths, h_total, N=None, overrides=None):
     """``benchmark/sim_defs.yaml`` on the given chromosomes: ``h_total``,
@@ -4193,18 +4805,107 @@ def read_benchmark_paths(raw):
         counts=os.path.join(sim_dir, 'remixt', 'counts',
                             'sample_tumour.tsv'),
         results=store_name(os.path.join(sim_dir, 'results_remixt')),
-        evaluation=store_name(os.path.join(sim_dir, 'evaluation_remixt')))
+        evaluation=store_name(os.path.join(sim_dir, 'evaluation_remixt')),
+        tools={tool: dict(
+            workdir=os.path.join(sim_dir, tool),
+            results=store_name(os.path.join(sim_dir, 'results_' + tool)),
+            evaluation=store_name(os.path.join(sim_dir,
+                                               'evaluation_' + tool)))
+            for tool in READ_TOOLS})
+
+
+def input_digest(path):
+    """The sha256 (first 16 hex digits) of a tool input file with its
+    chromosomes' blocks in sorted order (a WIG track's block begins at
+    its header, a table's is the run of lines of one first field): the
+    wrappers write the chromosomes in the order of a set of names, which
+    differs between processes."""
+    with open(path, 'rb') as f:
+        lines = f.read().splitlines(keepends=True)
+    blocks = []
+    for line in lines:
+        if line.startswith(b'fixedStep'):
+            key = line.split(b'chrom=')[1].split()[0]
+        elif lines[0].startswith(b'fixedStep'):
+            key = blocks[-1][0]
+        else:
+            key = line.split(b'\t')[0]
+        if not blocks or blocks[-1][0] != key or line.startswith(
+                b'fixedStep'):
+            blocks.append((key, []))
+        blocks[-1][1].append(line)
+    digest = hashlib.sha256()
+    for _, block in sorted(blocks, key=lambda kv: kv[0]):
+        digest.update(b''.join(block))
+    return digest.hexdigest()[:16]
+
+
+def tool_calls_of(calls, tool, places):
+    """A tool's stand-in calls among ``calls`` (lines of the call log),
+    each path under a directory of ``places`` ({directory: placeholder})
+    written with the placeholder."""
+    out = []
+    for call in calls:
+        if call.split(' ', 1)[0] in TOOL_STANDINS[tool]:
+            for directory, placeholder in places.items():
+                call = call.replace(os.path.abspath(directory), placeholder)
+            out.append(call)
+    return out
+
+
+def tool_record(paths, calls, places):
+    """What a read benchmark run made of one external tool (``paths``: its
+    work directory, results and evaluation stores, of either package):
+    the digests of the files its wrapper wrote for it (``input_digest``),
+    its stand-in calls (``tool_calls_of``), its results store's cn table
+    (rows, columns, the sha256 of its rows' text) and mix, and its
+    evaluation's metrics."""
+    from remixt_tpu_torch.io.store import read_store
+    tool = os.path.basename(paths['workdir'])
+    results = read_store(paths['results'])
+    cn = results['cn']
+    text = '\n'.join('\t'.join(str(v) for v in row)
+                     for row in zip(*(cn[c].tolist() for c in cn.columns)))
+    return dict(
+        inputs={name: input_digest(os.path.join(paths['workdir'], name))
+                for name in TOOL_INPUTS[tool]},
+        calls=tool_calls_of(calls, tool, places),
+        cn=dict(rows=len(cn), columns=cn.columns,
+                sha256=hashlib.sha256(text.encode()).hexdigest()[:16]),
+        mix=results['mix'].values.tolist(),
+        evaluation=evaluation_metrics(read_store(paths['evaluation'])))
+
+
+def check_tool_record(label, tool, got, want):
+    """A tool's record (``tool_record``) against the JAX package's: all of
+    it equal, the evaluation's metrics at rtol 1e-12."""
+    for key in ('inputs', 'calls', 'cn', 'mix'):
+        if got[key] != want[key]:
+            raise AssertionError('{}: {}\'s {} are not the JAX package\'s: '
+                                 '{} against {}'.format(label, tool, key,
+                                                        got[key], want[key]))
+    metrics = want['evaluation']
+    if sorted(got['evaluation']) != sorted(metrics) or not all(np.isclose(
+            got['evaluation'][k], v, rtol=1e-12, atol=0)
+            for k, v in metrics.items()):
+        raise AssertionError('{}: {}\'s evaluation is not the JAX '
+                             'package\'s: {} against {}'.format(
+                                 label, tool, got['evaluation'], metrics))
 
 
 def read_benchmark(label, root, chromosome_lengths, h_total, N=None):
     """The read benchmark's inputs made in ``root``, its reference built
     from them by the port's ``create_ref_data`` (``build_read_reference``),
     then its runner
-    (``remixt_tpu_torch.benchmark.run_read_benchmark.main``) on them, the
-    fit on the card at the default config, the stand-in phasing tools
-    first on the PATH, their truth written from the simulated germline
-    alleles. Returns dict(fixture, table, the paths of ``read_benchmark_paths``,
-    times {step: [seconds]}, waves, launches, whole)."""
+    (``remixt_tpu_torch.benchmark.run_read_benchmark.main``) on them with
+    ``--tools remixt`` and READ_TOOLS: the fit on the card at the default
+    config, the external callers through their stand-ins (``caller_config``;
+    THetA on READ_THETA_WINDOW windows), the stand-in tools first on the
+    PATH, the phasing tools' truth written from the simulated germline
+    alleles. Returns dict(fixture, table, the paths of
+    ``read_benchmark_paths``, times {step: [seconds]}, waves, launches,
+    whole, calls (the callers' stand-in calls), places ({directory:
+    placeholder} for ``tool_record``))."""
     import torch
     from remixt_tpu_torch.benchmark import run_read_benchmark
     from remixt_tpu_torch.io import store
@@ -4223,13 +4924,22 @@ def read_benchmark(label, root, chromosome_lengths, h_total, N=None):
     fixture = build_read_reference(label, fixture, chromosome_lengths,
                                    os.path.join(root, 'built'), bin_dir,
                                    mirror_dir)
+    segments = write_window_segments(
+        os.path.join(root, 'inputs', 'theta_segments.tsv'),
+        chromosome_lengths, READ_THETA_WINDOW)
+    fixture['config'] = dict(fixture['config'],
+                             **caller_config(bin_dir, segments))
+    with open(fixture['config_file'], 'w') as f:
+        json.dump(fixture['config'], f)
     raw = os.path.join(root, 'raw')
     table = store.store_name(os.path.join(root, 'evaluation'))
     argv = [fixture['ref_data_dir'], fixture['sim_defs'], raw, table,
-            '--config', fixture['config_file']]
+            '--config', fixture['config_file'],
+            '--tools', 'remixt'] + list(READ_TOOLS)
     patches = [
         (sim_pipeline, 'simulate_germline_alleles', with_germline_truth(
             sim_pipeline.simulate_germline_alleles, fixture['ref_data_dir']))]
+    tool_calls(bin_dir)
     with instrumented(READ_STEPS, patches) as (stages, marks), \
             first_on_path(bin_dir):
         torch.cuda.reset_peak_memory_stats()
@@ -4238,9 +4948,12 @@ def read_benchmark(label, root, chromosome_lengths, h_total, N=None):
         run_read_benchmark.main(argv)
         whole = time.time() - t0
         launches = chain_launches()
+    paths = read_benchmark_paths(raw)
     return dict(fixture=fixture, table=table, times=stages,
                 waves=np.diff(marks).tolist(), launches=launches,
-                whole=whole, **read_benchmark_paths(raw))
+                whole=whole, calls=tool_calls(bin_dir),
+                places={bin_dir: '@BIN@', paths['sim_dir']: '@SIM@'},
+                **paths)
 
 
 def results_cli(label, results, out_dir):
@@ -4330,8 +5043,10 @@ def check_shapeit2_phasing(label, sim_dir, chromosomes):
 def phase_read_benchmark(smi):
     """Phase 12: the read benchmark over RUN_CHROMOSOMES at READ_H_TOTAL on
     a GRCh37 reference (READ_GENOME_VERSION), phased through shapeit's
-    stand-in, the fit on the card, then the results CLI on its results
-    store. Returns the fb_grouped launches."""
+    stand-in, the fit on the card, TITAN, THetA2 and cloneHD through their
+    wrappers and stand-ins (each held to ``READ_JAX['tools']``), the four
+    evaluations merged; then the results CLI on ReMixT's results store.
+    Returns the fb_grouped launches."""
     import torch
     from remixt_tpu_torch import config as config_mod
     from remixt_tpu_torch.io.store import read_store
@@ -4393,11 +5108,36 @@ def phase_read_benchmark(smi):
     check_chosen_restart('phase 12', mixture, read_store(run['results']),
                          READ_JAX)
     merged = read_store(run['table'])
-    for name in ('simulations', 'cn_evaluation', 'brk_cn_evaluation',
-                 'mix_results'):
-        if name not in merged or len(merged[name]) != 1:
-            raise AssertionError('phase 12: the merged evaluation has no '
-                                 'row of {}'.format(name))
+    if len(merged.get('simulations', ())) != 1:
+        raise AssertionError('phase 12: the merged evaluation has no row of '
+                             'the simulation')
+    tools = ['remixt'] + list(READ_TOOLS)
+    for name in ('cn_evaluation', 'brk_cn_evaluation', 'mix_results'):
+        if name not in merged or merged[name]['tool'].tolist() != tools:
+            raise AssertionError('phase 12: the merged evaluation\'s {} has '
+                                 'not one row for each of {}'.format(
+                                     name, tools))
+    if 'tools' not in READ_JAX:
+        raise AssertionError('phase 12: READ_JAX has no tools; run python '
+                             'tests/test_torch_read_benchmark.py --phase12 '
+                             'WORKDIR --tools')
+    for tool in READ_TOOLS:
+        record = tool_record(run['tools'][tool], run['calls'], run['places'])
+        check_tool_record('phase 12', tool, record, READ_JAX['tools'][tool])
+        steps = {stage: sum(run['times'].get('{} {}'.format(tool, stage),
+                                             [0.0]))
+                 for stage in ('prepare', 'run', 'report')}
+        log('phase 12: {}: its {} input files, {} stand-in calls, results '
+            '({} segments, mix {}) and evaluation (proportion_cn_correct '
+            '{:.4f}) are the JAX package\'s; prepare {:.3f} s, run {:.3f} '
+            's, report {:.3f} s'.format(
+                tool, len(record['inputs']), len(record['calls']),
+                record['cn']['rows'], record['mix'],
+                record['evaluation']['proportion_cn_correct'],
+                steps['prepare'], steps['run'], steps['report']))
+    log('phase 12: the merged evaluation has one row for each of {}; the '
+        'external tools ran on the host: fb_grouped launches stay {}'.format(
+            ', '.join(tools), expected))
     cli_times = results_cli('phase 12', run['results'],
                             os.path.join(root, 'results_cli'))
     log('phase 12 ({}): read benchmark {:.1f} s, results CLI {:.1f} s, '

@@ -233,15 +233,24 @@ def _parse_column(fields):
         return np.array(fields, dtype=object)
 
 
-def read_tsv(path, str_columns=()):
+def read_tsv(path, str_columns=(), names=None, whitespace=False):
     """A tab-separated file with a header line as a :class:`Table`.
 
     Column types follow ``pd.read_csv``'s inference (see
     ``_parse_column``); a column named in ``str_columns`` stays ``str``,
-    as a ``str`` converter keeps it. Blank lines are skipped.
+    as a ``str`` converter keeps it. Blank lines are skipped. With
+    ``names`` the file has no header line and the columns take these
+    names (``header=None, names=...``); with ``whitespace`` fields are
+    split on runs of blanks (``sep=r'\\s+'``).
     """
     with open(path, newline='') as f:
-        rows = [row for row in csv.reader(f, delimiter='\t') if row]
+        if whitespace:
+            rows = [line.split() for line in f]
+        else:
+            rows = list(csv.reader(f, delimiter='\t'))
+    rows = [row for row in rows if row]
+    if names is not None:
+        rows = [list(names)] + rows
     if not rows:
         raise ValueError('{} has no header line'.format(path))
     header, rows = rows[0], rows[1:]

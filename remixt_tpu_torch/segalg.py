@@ -1,10 +1,11 @@
 """Genomic interval keys, containment and segment refinement (numpy).
 
-Counterpart of ``composite_keys``, ``reindex_segments``, the containment
-lookups and counts, ``vrange`` and ``interval_position_overlap`` of
-``remixt_tpu/segalg.py``: the experiment's breakend matcher needs the keys,
-the simulation's evaluation the common refinement of two segmentations,
-the ``run`` path's segment and allele counts the containment lookups.
+Counterpart of ``composite_keys``, ``reindex_segments``,
+``aggregate_adjacent``, the containment lookups and counts, ``vrange`` and
+``interval_position_overlap`` of ``remixt_tpu/segalg.py``: the
+experiment's breakend matcher needs the keys, the simulation's evaluation
+and the cloneHD wrapper the common refinement of two segmentations, the
+``run`` path's segment and allele counts the containment lookups.
 """
 
 import numpy as np
@@ -90,6 +91,96 @@ def reindex_segments(cn_1, cn_2):
         ('idx_1', cn_1.index[cover_1[both]]),
         ('idx_2', cn_2.index[cover_2[both]]),
     ])
+
+
+def _is_missing(values):
+    """NaN and None, as pandas' ``isna``."""
+    if values.dtype.kind == 'f':
+        return np.isnan(values)
+    if values.dtype == object:
+        return np.array([v is None or v != v for v in values.tolist()],
+                        dtype=bool)
+    return np.zeros(len(values), dtype=bool)
+
+
+def _run_first(values, run_starts, run_ends):
+    """Each run's first value that is not missing (``groupby().first()``);
+    NaN where a run has none."""
+    present = np.flatnonzero(~_is_missing(values))
+    first = np.searchsorted(present, run_starts)
+    safe = present[np.minimum(first, max(len(present) - 1, 0))] \
+        if len(present) else np.zeros(len(run_starts), dtype=np.int64)
+    found = (first < len(present)) & (safe < run_ends)
+    if found.all():
+        return values[safe]
+    out = values[safe].astype(object if values.dtype == object
+                              else np.float64)
+    out[~found] = np.nan
+    return out
+
+
+def _run_sum(values, run_starts):
+    """Each run's sum as ``groupby().sum()`` gives it: integers exactly,
+    floats in order with pandas' Kahan compensation, missing values
+    skipped."""
+    if values.dtype.kind in 'iub':
+        return np.add.reduceat(values.astype(np.int64), run_starts)
+    values = values.astype(np.float64)
+    lengths = np.diff(np.r_[run_starts, len(values)])
+    total = np.zeros(len(run_starts))
+    compensation = np.zeros(len(run_starts))
+    for step in range(lengths.max()):
+        live = np.flatnonzero(lengths > step)
+        val = values[run_starts[live] + step]
+        live, val = live[~np.isnan(val)], val[~np.isnan(val)]
+        y = val - compensation[live]
+        t = total[live] + y
+        comp = t - total[live] - y
+        # an infinite value leaves a NaN compensation, which pandas resets
+        compensation[live] = np.where(np.isnan(comp), 0., comp)
+        total[live] = t
+    return total
+
+
+def aggregate_adjacent(cnv, value_cols=None, stable_cols=None,
+                       length_normalized_cols=None):
+    """Merge runs of adjacent segments sharing a copy-number state.
+
+    A run breaks where the chromosome or any of ``value_cols`` changes;
+    ``stable_cols`` take the run's first value that is not missing,
+    ``start`` its least, ``end`` its greatest, ``length`` its sum, and
+    ``length_normalized_cols`` the length-weighted mean over
+    ``length + 1e-16``. Returns a Table indexed by run, 1 to the number of
+    runs, with the columns in that order.
+    """
+    if value_cols is None:
+        value_cols = ['major_1', 'major_2', 'minor_1', 'minor_2']
+    if stable_cols is None:
+        stable_cols = [
+            'chromosome',
+            'major_1', 'major_2', 'minor_1', 'minor_2',
+            'major_raw_e', 'minor_raw_e',
+        ]
+    if length_normalized_cols is None:
+        length_normalized_cols = ['major_raw', 'minor_raw']
+
+    chrom_code = _factorize(cnv['chromosome'].tolist())[0]
+    state = np.column_stack([chrom_code] + [cnv[c] for c in value_cols])
+    is_new_run = np.concatenate(
+        ([True], np.any(state[1:] != state[:-1], axis=1)))
+    run_starts = np.flatnonzero(is_new_run)
+    run_ends = np.r_[run_starts[1:], len(cnv)]
+
+    columns = [(c, _run_first(cnv[c], run_starts, run_ends))
+               for c in stable_cols]
+    columns.append(('start', np.fmin.reduceat(cnv['start'], run_starts)))
+    columns.append(('end', np.fmax.reduceat(cnv['end'], run_starts)))
+    length = _run_sum(cnv['length'], run_starts)
+    columns.append(('length', length))
+    for c in length_normalized_cols:
+        columns.append((c, _run_sum(cnv[c] * cnv['length'], run_starts)
+                        / (length + 1e-16)))
+    return Table(columns, index=np.arange(1, len(run_starts) + 1))
 
 
 def find_contained_positions(X, Y):

@@ -238,6 +238,41 @@ def merge_seqdata(out_filename, in_filenames):
         writer.close()
 
 
+def merge_overlapping_seqdata(outfile, infiles, chromosomes):
+    """Merge seqdata stores ({key: filename}) that may share chromosomes
+    into a new store, in ``infiles``' order: each input's fragment ids on a
+    chromosome are offset past the ids merged so far there, so that they
+    stay unique. An input lacking either table of a chromosome adds
+    nothing to it, and an empty table adds no ids. The forms of the inputs
+    and the output may differ."""
+    offsets = dict.fromkeys(chromosomes, 0)
+    writer = Writer(outfile)
+    try:
+        for infile in infiles.values():
+            for chromosome in chromosomes:
+                readers = [_Reader(infile, record_type, chromosome)
+                           for record_type in ('alleles', 'fragments')]
+                try:
+                    if not all(reader.present for reader in readers):
+                        continue
+                    tables = [reader.table() for reader in readers]
+                finally:
+                    for reader in readers:
+                        reader.close()
+                for table in tables:
+                    table['fragment_id'] = (table['fragment_id'].astype(
+                        np.int64) + offsets[chromosome])
+                id_maxes = [int(table['fragment_id'].max())
+                            for table in tables if len(table) > 0]
+                if id_maxes:
+                    offsets[chromosome] = max(id_maxes) + 1
+                for record_type, table in zip(('alleles', 'fragments'),
+                                              tables):
+                    writer.write_table(record_type, chromosome, table)
+    finally:
+        writer.close()
+
+
 # ---------------------------------------------------------------------------
 # reading
 # ---------------------------------------------------------------------------
@@ -303,7 +338,12 @@ def read_allele_data(seqdata_filename, chromosome, chunksize=None):
 
 
 def read_chromosomes(seqdata_filename):
-    """The set of chromosomes present in a seqdata store."""
+    """The set of chromosomes present in a seqdata store.
+
+    Both forms add the names in HDF5's visiting order (record types and
+    then tables by name), so that the set iterates as the JAX package's
+    does in the same process: the external tools' input files follow that
+    order."""
     if is_hdf5(seqdata_filename):
         import h5py
         chromosomes = set()
@@ -315,10 +355,10 @@ def read_chromosomes(seqdata_filename):
             store.visititems(visit)
         return chromosomes
     chromosomes = set()
-    for record_type in RECORD_TYPES:
+    for record_type in sorted(RECORD_TYPES):
         path = os.path.join(seqdata_filename, record_type)
         if os.path.isdir(path):
-            chromosomes |= {name[len('chromosome_'):]
-                            for name in os.listdir(path)
-                            if name.startswith('chromosome_')}
+            for name in sorted(os.listdir(path)):
+                if name.startswith('chromosome_'):
+                    chromosomes.add(name[len('chromosome_'):])
     return chromosomes

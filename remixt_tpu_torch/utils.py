@@ -4,9 +4,9 @@ sharding and merging, file plumbing.
 Counterpart of ``weighted_resample``, ``weighted_percentile``,
 ``reverse_complement``, ``read_sequences``, ``read_chromosome_lengths``,
 ``sort_chromosome_names``, ``merge_files``, ``split_table``,
-``merge_tables``, ``link_file``, ``wget``, ``wget_gunzip`` and
-``AutoSentinal`` of ``remixt_tpu/utils/__init__.py``; the table functions
-work on the text, without pandas.
+``merge_tables``, ``link_file``, ``BreakpointDatabase``, ``wget``,
+``wget_gunzip`` and ``AutoSentinal`` of ``remixt_tpu/utils/__init__.py``;
+the table functions work on the text, without pandas.
 """
 
 import csv
@@ -140,6 +140,65 @@ def link_file(target_filename, link_filename):
     if os.path.lexists(link_filename):
         os.remove(link_filename)
     os.symlink(os.path.abspath(target_filename), link_filename)
+
+
+class BreakpointDatabase:
+    """Fuzzy (chromosome, strand, position ± extend) breakpoint matcher.
+
+    Built from a breakpoint Table (prediction_id and chromosome, strand and
+    position of sides 1 and 2): per (chromosome, strand) the breakends'
+    positions, sorted stably, queried with ``searchsorted`` windows.
+    ``query(row, extend)`` returns the prediction id whose two breakends
+    lie within ``extend`` of the probed row's two, on opposite sides, with
+    the least summed distance (the lesser id on a tie), else None.
+    """
+
+    def __init__(self, breakpoints):
+        seen, grouped = set(), {}
+        for side in ('1', '2'):
+            for row in zip(breakpoints['prediction_id'].tolist(),
+                           breakpoints['chromosome_' + side].tolist(),
+                           breakpoints['strand_' + side].tolist(),
+                           breakpoints['position_' + side].tolist()):
+                if row + (side,) in seen:
+                    continue
+                seen.add(row + (side,))
+                prediction_id, chrom, strand, position = row
+                grouped.setdefault((chrom, strand), []).append(
+                    (position, prediction_id, side))
+
+        self._index = {}
+        for key, ends in grouped.items():
+            order = np.argsort([end[0] for end in ends], kind='stable')
+            self._index[key] = (
+                np.array([ends[i][0] for i in order]),
+                [ends[i][1:] for i in order])
+
+    def _breakends_near(self, chrom, strand, target, extend):
+        """[(prediction_id, side, distance)] within the extend window."""
+        if (chrom, strand) not in self._index:
+            return []
+        positions, labels = self._index[(chrom, strand)]
+        lo, hi = np.searchsorted(
+            positions, [target - extend, target + extend + 1])
+        return [(pid, side, abs(int(positions[i]) - int(target)))
+                for i, (pid, side) in zip(range(lo, hi), labels[lo:hi])]
+
+    def query(self, row, extend=0):
+        near = [
+            self._breakends_near(row['chromosome_' + probe_side],
+                                 row['strand_' + probe_side],
+                                 row['position_' + probe_side], extend)
+            for probe_side in ('1', '2')]
+
+        best = None
+        for pid_1, side_1, d1 in near[0]:
+            for pid_2, side_2, d2 in near[1]:
+                if pid_1 == pid_2 and side_1 != side_2:
+                    key = (d1 + d2, pid_1)
+                    if best is None or key < best:
+                        best = key
+        return best[1] if best is not None else None
 
 
 def wget(url, filename):

@@ -1,7 +1,9 @@
 """The port's read-level benchmark path against the JAX package's, on the
 CPU: ``create_simulations`` from a reference's FASTA index, the read and
-resample simulation workflows, ``ReMixTTool``, breakpoint matching, and
-the read benchmark's runner end to end.
+resample simulation workflows, ``ReMixTTool``, breakpoint matching, the
+read benchmark's runner end to end with the four tools (ReMixT, and
+TITAN, THetA2 and cloneHD through ``chip_smoke.py``'s stand-ins), and the
+resample runner with the external tools.
 
 The inputs are ``chip_smoke.make_read_fixture``'s at a small size (two
 chromosomes of 3 and 2 Mb, an impute2 panel of 40 haplotypes at the
@@ -20,13 +22,16 @@ runs the JAX package's read benchmark on them
 CPU) and the port's up to the count table, checks that
 the two packages' seqdata and count tables are equal, and prints the
 constants ``READ_JAX`` of ``chip_smoke.py`` (with the restart the JAX fit
-chose, every restart's ELBO, and the JAX package's refits of the restarts
+chose, every restart's ELBO, the JAX package's refits of the restarts
 near the chosen one: ``test_torch_run.jax_fit_choice`` and
-``jax_near_references``). Nothing is seeded between the tasks of either
-run. With ``--near`` it makes only the refits, from a WORKDIR where such
-a run has finished.
+``jax_near_references``, and each external tool's ``tool_record``).
+Nothing is seeded between the tasks of either run. With ``--near`` it
+makes only the refits, from a WORKDIR where such a run has finished; with
+``--tools`` it runs the JAX benchmark with the external tools alone and
+prints ``READ_JAX['tools']`` (~2 min).
 """
 
+import filecmp
 import importlib.util
 import json
 import os
@@ -250,7 +255,7 @@ def test_remixt_tool_refuses_two_tumours_and_passes_its_device(tmp_path):
     finally:
         workflow.create_remixt_seqdata_workflow = original
     assert seen == {'normal_id': 'n', 'device': 'cpu'}
-    assert list(wrappers.catalog) == ['remixt']
+    assert list(wrappers.catalog) == ['remixt', 'titan', 'theta', 'clonehd']
 
 
 def bp_frame(rows):
@@ -305,36 +310,156 @@ def test_breakpoint_matching_equals_jax(case):
         assert len(got) == 2
 
 
+def caller_config(cs, tmp_path):
+    """The external callers' config for the stand-ins of ``tmp_path/bin``
+    (written there), THetA on 500 kb windows over CHROMOSOMES."""
+    bin_dir = cs.write_standin_tools(str(tmp_path / 'bin'))
+    segments = cs.write_window_segments(str(tmp_path / 'segments.tsv'),
+                                        CHROMOSOMES, 500000)
+    return bin_dir, cs.caller_config(bin_dir, segments)
+
+
+def run_jax_runner(script, argv, fixture, bin_dir):
+    """A JAX runner (``benchmark/<script>``) with ``argv``, the stand-ins
+    first on the PATH and their truth written from the simulated germline.
+
+    The JAX external tools' prepare tasks name no inputs, so its scheduler
+    would run them before the simulation writes the seqdata they read: the
+    runner runs its simulation tasks alone first, then whole, resuming
+    past them (nothing is seeded between the two)."""
+    import remixt_tpu.simulations.pipeline as jax_sim
+    cs = chip_smoke()
+    runner = load_module('jax_' + script[:-3], os.path.join(
+        REPO, 'benchmark', script))
+    workflow = runner.Workflow
+
+    class SimulationOnly(workflow):
+        def run(self, workdir, **kwargs):
+            self.tasks = [t for t in self.tasks if t.name.startswith(
+                ('simulate_', 'resample_'))]
+            return super().run(workdir, **kwargs)
+
+    saved, argv0 = jax_sim.simulate_germline_alleles, sys.argv
+    jax_sim.simulate_germline_alleles = cs.with_germline_truth(
+        saved, fixture['ref_data_dir'])
+    try:
+        with cs.first_on_path(bin_dir):
+            sys.argv = [script] + argv
+            for runner.Workflow in (SimulationOnly, workflow):
+                runner.main()
+    finally:
+        sys.argv = argv0
+        runner.Workflow = workflow
+        jax_sim.simulate_germline_alleles = saved
+
+
+def assert_same_tool_rows(merged, jax_table, tools):
+    """The rows of ``tools`` in the merged evaluation's tables equal to
+    those of the JAX runner's merged store ``jax_table``: strings exactly,
+    floats at rtol 1e-12."""
+    from remixt_tpu.io.hdf5 import HDFStore
+    with HDFStore(jax_table, 'r') as store:
+        for name in ('cn_evaluation', 'brk_cn_evaluation', 'mix_results'):
+            ref = store[name]
+            ref = ref[ref['tool'].isin(tools)]
+            got = merged[name]
+            rows = [i for i, tool in enumerate(got['tool']) if tool in tools]
+            assert got.columns == list(ref.columns), name
+            assert [got['tool'][i] for i in rows] == list(ref['tool'])
+            for col in ref.columns:
+                values = [got[col][i] for i in rows]
+                if ref[col].dtype.kind == 'f':
+                    np.testing.assert_allclose(values, ref[col].values,
+                                               rtol=1e-12, atol=0,
+                                               err_msg=col)
+                else:
+                    assert [str(v) for v in values] == \
+                        [str(v) for v in ref[col]], col
+
+
+def assert_same_tool_runs(port_paths, jax_paths, calls, places):
+    """Each external tool's files, stand-in calls, results and evaluation
+    of a port run (``port_paths``: {tool: work directory, results and
+    evaluation}) equal to the JAX run's: the input files byte for byte,
+    the rest as ``chip_smoke.check_tool_record`` holds them."""
+    cs = chip_smoke()
+    for tool in cs.READ_TOOLS:
+        for name in cs.TOOL_INPUTS[tool]:
+            assert filecmp.cmp(
+                os.path.join(port_paths[tool]['workdir'], name),
+                os.path.join(jax_paths[tool]['workdir'], name),
+                shallow=False), (tool, name)
+        got = cs.tool_record(port_paths[tool], calls['port'], places['port'])
+        want = cs.tool_record(jax_paths[tool], calls['jax'], places['jax'])
+        assert len(got['calls']) == {'titan': 4, 'theta': 2,
+                                     'clonehd': 5}[tool]
+        cs.check_tool_record('test', tool, got, want)
+
+
 def test_read_benchmark_end_to_end(fixture, tmp_path):
     """The runner's main on the CPU at test size (1 EM × 1 VI, one mix
-    fraction and weight): simulation, the run from seqdata, the fit, the
-    evaluation and the merge. The merged evaluation has the JAX package's
-    columns and, on the port's results store, the JAX evaluation's values;
-    without CUDA and no device the runner raises."""
+    fraction and weight) with the four tools: simulation, the run from
+    seqdata, the fit, TITAN, THetA2 and cloneHD through their stand-ins,
+    the evaluations and the merge, one row per tool. The merged
+    evaluation has the JAX package's columns and, on the port's results
+    store, the JAX evaluation's values; the external tools' rows, files,
+    stand-in calls, results and evaluations are the JAX runner's (run with
+    the three tools on the same inputs); without CUDA and no device the
+    runner raises."""
     import remixt_tpu.simulations.pipeline as jax_sim
     from remixt_tpu_torch.benchmark import run_read_benchmark
     from remixt_tpu_torch.io.store import read_store
 
     cs = chip_smoke()
+    bin_dir, callers = caller_config(cs, tmp_path)
     config_file = tmp_path / 'config.yaml'
-    config_file.write_text(json.dumps(dict(fixture['config'], **CONFIG)))
+    config_file.write_text(json.dumps(dict(fixture['config'], **CONFIG,
+                                           **callers)))
     raw = str(tmp_path / 'raw')
     table = str(tmp_path / 'evaluation.h5')
     argv = [fixture['ref_data_dir'], fixture['sim_defs'], raw, table,
             '--config', str(config_file)]
-    bin_dir = cs.write_standin_tools(str(tmp_path / 'bin'))
     import remixt_tpu_torch.simulations.pipeline as torch_sim
     original = torch_sim.simulate_germline_alleles
     torch_sim.simulate_germline_alleles = cs.with_germline_truth(
         original, fixture['ref_data_dir'])
+    cs.tool_calls(bin_dir)
     try:
         with cs.first_on_path(bin_dir):
             np.random.seed(cs.RUN_NUMPY_SEED)
-            run_read_benchmark.main(argv + ['--device', 'cpu'])
+            run_read_benchmark.main(argv + ['--device', 'cpu', '--tools',
+                                            'remixt'] + list(cs.READ_TOOLS))
     finally:
         torch_sim.simulate_germline_alleles = original
     paths = cs.read_benchmark_paths(raw)
     merged = read_store(table)
+    calls = {'port': cs.tool_calls(bin_dir)}
+    for name in ('cn_evaluation', 'brk_cn_evaluation', 'mix_results'):
+        assert merged[name]['tool'].tolist() == [
+            'remixt', 'titan', 'theta', 'clonehd']
+
+    jax_raw = str(tmp_path / 'jax_raw')
+    jax_table = str(tmp_path / 'jax_runner_evaluation.h5')
+    jax_config_file = tmp_path / 'jax_config.yaml'
+    jax_config_file.write_text(json.dumps(dict(jax_config(fixture), **CONFIG,
+                                               **callers)))
+    run_jax_runner('run_read_benchmark.py', [
+        fixture['ref_data_dir'], fixture['sim_defs'], jax_raw, jax_table,
+        '--config', str(jax_config_file), '--tools'] + list(cs.READ_TOOLS),
+        fixture, bin_dir)
+    calls['jax'] = cs.tool_calls(bin_dir)
+    jax_paths = cs.read_benchmark_paths(jax_raw)
+    assert_same_tool_rows(merged, jax_table, cs.READ_TOOLS)
+    assert_same_tool_runs(
+        paths['tools'], {tool: dict(
+            workdir=os.path.join(jax_paths['sim_dir'], tool),
+            results=os.path.join(jax_paths['sim_dir'],
+                                 'results_{}.h5'.format(tool)),
+            evaluation=os.path.join(jax_paths['sim_dir'],
+                                    'evaluation_{}.h5'.format(tool)))
+            for tool in cs.READ_TOOLS}, calls,
+        {'port': {bin_dir: '@BIN@', paths['sim_dir']: '@SIM@'},
+         'jax': {bin_dir: '@BIN@', jax_paths['sim_dir']: '@SIM@'}})
 
     # the JAX package's own pickle of the same mixture
     jax_mixture = str(tmp_path / 'jax_mixture.pickle')
@@ -348,20 +473,9 @@ def test_read_benchmark_end_to_end(fixture, tmp_path):
     jax_sim.merge_evaluations(jax_merged, sim_defs,
                               {(cs.READ_SIM_ID, 'remixt'): jax_eval},
                               ['sim_id', 'tool'])
+    assert_same_tool_rows(merged, jax_merged, ['remixt'])
     from remixt_tpu.io.hdf5 import HDFStore
     with HDFStore(jax_merged, 'r') as store:
-        for name in ('cn_evaluation', 'brk_cn_evaluation', 'mix_results'):
-            ref = store[name]
-            got = merged[name]
-            assert got.columns == list(ref.columns), name
-            for col in ref.columns:
-                if ref[col].dtype.kind == 'f':
-                    np.testing.assert_allclose(got[col], ref[col].values,
-                                               rtol=1e-12, atol=0,
-                                               err_msg=col)
-                else:
-                    assert [str(v) for v in got[col]] == \
-                        [str(v) for v in ref[col]], col
         assert set(merged) >= {k.lstrip('/') for k in store.keys()
                                if not k.startswith('/brk_cn_table')}
     stats = read_store(paths['results'], keys=['stats'])['stats']
@@ -531,15 +645,76 @@ def test_resample_runner_without_cuda_raises(fixture, tmp_path,
     assert not raw.exists()
 
 
+def test_resample_runner_with_the_external_tools_equals_jax(
+        fixture, simulated, tmp_path):
+    """Both resample runners with ``--tools titan theta clonehd`` on the
+    JAX simulation's seqdata, through the shared ``add_tool_tasks``: one
+    row per tool, and each tool's files, stand-in calls, results and
+    evaluation the JAX runner's."""
+    from remixt_tpu_torch.benchmark import run_resample_benchmark
+    from remixt_tpu_torch.io.store import read_store, store_name
+
+    cs = chip_smoke()
+    bin_dir, callers = caller_config(cs, tmp_path)
+    sources = simulated['jax'][0]
+    raw, table, calls, places, paths = {}, {}, {}, {}, {}
+    for name, config in (('port', fixture['config']),
+                         ('jax', jax_config(fixture))):
+        config_file = tmp_path / '{}_config.yaml'.format(name)
+        config_file.write_text(json.dumps(dict(config, **callers)))
+        raw[name] = str(tmp_path / '{}_raw'.format(name))
+        table[name] = str(tmp_path / '{}_evaluation.h5'.format(name))
+        argv = [fixture['ref_data_dir'], fixture['sim_defs'],
+                sources['normal'], sources['tumour'], raw[name],
+                table[name], '--config', str(config_file),
+                '--tools'] + list(cs.READ_TOOLS)
+        cs.tool_calls(bin_dir)
+        if name == 'port':
+            with cs.first_on_path(bin_dir):
+                run_resample_benchmark.main(argv + ['--device', 'cpu'])
+        else:
+            run_jax_runner('run_resample_benchmark.py', argv, fixture,
+                           bin_dir)
+        calls[name] = cs.tool_calls(bin_dir)
+        sim_dir = os.path.join(raw[name], cs.READ_SIM_ID)
+        places[name] = {bin_dir: '@BIN@', sim_dir: '@SIM@'}
+        suffix = store_name if name == 'port' else (lambda stem:
+                                                    stem + '.h5')
+        paths[name] = {tool: dict(
+            workdir=os.path.join(sim_dir, tool),
+            results=suffix(os.path.join(sim_dir, tool, 'results')),
+            evaluation=suffix(os.path.join(sim_dir, tool, 'evaluation')))
+            for tool in cs.READ_TOOLS}
+    merged = read_store(table['port'])
+    for name in ('cn_evaluation', 'brk_cn_evaluation', 'mix_results'):
+        assert merged[name]['tool'].tolist() == list(cs.READ_TOOLS)
+    assert_same_tool_rows(merged, table['jax'], cs.READ_TOOLS)
+    assert_same_tool_runs(paths['port'], paths['jax'], calls, places)
+
+
 # ---------------------------------------------------------------------------
 # phase 12's reference numbers
 # ---------------------------------------------------------------------------
 
-def phase12_reference(workdir, build):
+def jax_tool_records(cs, sim_dir, calls, bin_dir):
+    """``chip_smoke.tool_record`` of each external tool of a JAX read
+    benchmark run in ``sim_dir``."""
+    return {tool: cs.tool_record(
+        dict(workdir=os.path.join(sim_dir, tool),
+             results=os.path.join(sim_dir, 'results_{}.h5'.format(tool)),
+             evaluation=os.path.join(sim_dir,
+                                     'evaluation_{}.h5'.format(tool))),
+        calls, {bin_dir: '@BIN@', sim_dir: '@SIM@'})
+        for tool in cs.READ_TOOLS}
+
+
+def phase12_reference(workdir, build, tools_only=False):
     """Run the JAX package's read benchmark on phase 12's inputs, on the
-    genome build ``build``, and the port's up to the count table; print the
-    constants of ``READ_JAX``."""
-    import remixt_tpu.simulations.pipeline as jax_sim
+    genome build ``build``, with ReMixT and the external callers (through
+    the stand-ins; THetA on ``READ_THETA_WINDOW`` windows), and the port's
+    up to the count table; print the constants of ``READ_JAX``. With
+    ``tools_only``, run the JAX benchmark with the external callers alone,
+    check its seqdata against ``READ_JAX``'s and print its ``tools``."""
     from remixt_tpu.io.hdf5 import HDFStore
     import remixt_tpu_torch.simulations.pipeline as torch_sim
     from remixt_tpu_torch.benchmark import run_read_benchmark
@@ -552,22 +727,21 @@ def phase12_reference(workdir, build):
     print('fixture', build, fixture['times'], round(time.time() - t0, 1),
           flush=True)
     bin_dir = cs.write_standin_tools(os.path.join(workdir, 'bin'))
+    segments = cs.write_window_segments(
+        os.path.join(workdir, 'fixture', 'theta_segments.tsv'),
+        cs.RUN_CHROMOSOMES, cs.READ_THETA_WINDOW)
     config_file = os.path.join(workdir, 'jax_config.yaml')
     with open(config_file, 'w') as f:
-        json.dump(jax_config(fixture), f)
+        json.dump(dict(jax_config(fixture),
+                       **cs.caller_config(bin_dir, segments)), f)
 
     raw = {'jax': os.path.join(workdir, 'jax'),
            'torch': os.path.join(workdir, 'torch')}
     for path in raw.values():
         shutil.rmtree(path, ignore_errors=True)
-    runner = load_module('jax_run_read_benchmark', os.path.join(
-        REPO, 'benchmark', 'run_read_benchmark.py'))
-    saved = [(sim, sim.simulate_germline_alleles)
-             for sim in (jax_sim, torch_sim)]
-    for sim, simulate in saved:
-        sim.simulate_germline_alleles = cs.with_germline_truth(
-            simulate, fixture['ref_data_dir'])
-    argv = sys.argv
+    saved = torch_sim.simulate_germline_alleles
+    torch_sim.simulate_germline_alleles = cs.with_germline_truth(
+        saved, fixture['ref_data_dir'])
     try:
         with cs.first_on_path(bin_dir):
             sim_defs = torch_sim.create_simulations(
@@ -580,24 +754,31 @@ def phase12_reference(workdir, build):
                           if '/fit_model_' not in t.name
                           and not t.name.startswith(('evaluate_', 'merge_'))]
             t0 = time.time()
-            flow.run(os.path.join(raw['torch'], 'work'))
-            print('port run to the counts', round(time.time() - t0, 1),
-                  flush=True)
-
-            sys.argv = ['run_read_benchmark.py', fixture['ref_data_dir'],
-                        fixture['sim_defs'], raw['jax'],
-                        os.path.join(raw['jax'], 'evaluation.h5'),
-                        '--config', config_file]
-            t0 = time.time()
-            runner.main()
-            print('jax read benchmark', round(time.time() - t0, 1),
-                  flush=True)
+            if not tools_only:
+                flow.run(os.path.join(raw['torch'], 'work'))
+                print('port run to the counts', round(time.time() - t0, 1),
+                      flush=True)
     finally:
-        sys.argv = argv
-        for sim, simulate in saved:
-            sim.simulate_germline_alleles = simulate
+        torch_sim.simulate_germline_alleles = saved
+
+    cs.tool_calls(bin_dir)
+    t0 = time.time()
+    run_jax_runner('run_read_benchmark.py', [
+        fixture['ref_data_dir'], fixture['sim_defs'], raw['jax'],
+        os.path.join(raw['jax'], 'evaluation.h5'), '--config', config_file,
+        '--tools'] + ([] if tools_only else ['remixt']) + list(
+            cs.READ_TOOLS), fixture, bin_dir)
+    print('jax read benchmark', round(time.time() - t0, 1), flush=True)
 
     sim_dir = os.path.join(raw['jax'], cs.READ_SIM_ID)
+    tools = jax_tool_records(cs, sim_dir, cs.tool_calls(bin_dir), bin_dir)
+    if tools_only:
+        for sample in ('normal', 'tumour'):
+            assert cs.seqdata_digest(os.path.join(
+                sim_dir, sample + '.h5')) == cs.READ_JAX['seqdata'][sample]
+        print('seqdata equal to READ_JAX\'s', flush=True)
+        print('READ_JAX.update(tools=' + repr(tools) + ')')
+        return
     port = cs.read_benchmark_paths(raw['torch'])
     seqdata = {}
     for sample in ('normal', 'tumour'):
@@ -619,7 +800,7 @@ def phase12_reference(workdir, build):
         seqdata=seqdata, counts=counts, segments=counts['rows'],
         evaluation=metrics, **reference_run().jax_fit_choice(
             os.path.join(sim_dir, 'results_remixt.h5')),
-        **phase12_near(workdir))))
+        **phase12_near(workdir), tools=tools)))
 
 
 def reference_run():
@@ -643,9 +824,12 @@ if __name__ == '__main__':
     import argparse
     parser = argparse.ArgumentParser(
         usage='python tests/test_torch_read_benchmark.py --phase12 WORKDIR '
-              '[--near] [--build GRCh37|GRCh38]')
+              '[--near | --tools] [--build GRCh37|GRCh38]')
     parser.add_argument('--phase12', metavar='WORKDIR', required=True)
     parser.add_argument('--near', action='store_true')
+    parser.add_argument('--tools', action='store_true',
+                        help='run the JAX benchmark with the external '
+                             'callers alone and print READ_JAX\'s tools')
     parser.add_argument('--build', choices=['GRCh37', 'GRCh38'],
                         help='the reference\'s genome build (default: '
                              'chip_smoke.READ_GENOME_VERSION)')
@@ -655,4 +839,4 @@ if __name__ == '__main__':
         print('READ_JAX.update(' + repr(phase12_near(args.phase12)) + ')')
     else:
         phase12_reference(args.phase12, args.build
-                          or chip_smoke().READ_GENOME_VERSION)
+                          or chip_smoke().READ_GENOME_VERSION, args.tools)
