@@ -60,8 +60,11 @@ Phases, in order; any failure exits non-zero:
    the block's wall and device time; all seven parts must show device
    time, the parts and the unattributed time must sum to the block's
    device time within 1 %, and the chain update a sweep must take at least
-   0.75 × phase 2's ``fb_grouped`` (R=8) or phase 2b's ``fb_chains`` (one
-   restart) time; (b) ``fit_budget --trace``: one batched EM iteration's
+   0.75 × phase 2's ``fb_grouped`` time through its wrapper (R=8) or
+   phase 2b's ``fb_chains`` kernel alone on inputs the wrapper prepared
+   (one restart: the wrapper's own time there is held up by the host, by
+   1.34 to 2.04 ms on runs whose kernel alone took 1.17 to 1.22 ms, and
+   the range counts device time only); (b) ``fit_budget --trace``: one batched EM iteration's
    device time by its 13 ranges; (c) ``fit_budget``: the phase timings of
    the single and the batched fit; (d) ``probe_restart_scaling`` at
    ``PROBE_WAVES`` and its optimal wave; (e) ``profile_engine`` on the
@@ -207,9 +210,9 @@ Phases, in order; any failure exits non-zero:
    The order, for the time limit (the runs of phases 11–13 are host work
    most of the time, and hosts differ by up to 1.5× in it): phase 11's
    and 13's inputs are made once, after phase 8, and phase 13 starts
-   then in a process of its own, beside phases 9–12 and 14; after phase
-   10 phase 11 starts in another, and this process runs phases 12 and
-   14. Phases 9–14 are timed with the other processes running.
+   then in a process of its own, beside phases 9–12, 14 and 15; after
+   phase 10 phase 11 starts in another, and this process runs phases 12,
+   14 and 15. Phases 9–15 are timed with the other processes running.
 
 14. The reference build and the bwa mappability workflow, host only, in
    the main process after phase 12 (phases 11 and 13 may still run): on
@@ -227,6 +230,26 @@ Phases, in order; any failure exits non-zero:
    the ``bwa`` stand-in (the positions whose k-mer is unique) and its
    arrays the JAX package's with that chunk left out. Both again must
    call no tool. Prints each step's wall time and the peak resident set.
+
+15. Multi-device fitting, on virtual devices (the one card listed more
+   than once in a mesh; no scaling is measured), in the main process after
+   phase 14, at phase 2's width (N=6000, S=355, 300 events, 23 chains),
+   float32: (a) ``fit_restarts_batched`` over ``MESH_RESTARTS`` restarts,
+   2 EM × 5 VI, on a 2-device mesh (a wave of 8 on each, the shards one
+   after another) must equal the single-device fit at waves of 8 bit for
+   bit, both under ``torch.use_deterministic_algorithms(True,
+   warn_only=True)``, each ``fb_grouped`` launch counted; (b) 2 restarts
+   on the restart × chain mesh (2 × 2), ``fb_grouped`` launched once a
+   chain group, against the single-device fit, within ``MESH_2D_BARS``;
+   (c) one sweep of restart 0 with every chain in ``BLOCKS``
+   blocks over 2 devices (``ops/fb_blocked.py``), in float64 within
+   ``BLOCKED_F64_BAR`` and in float32 within ``F32_VS_F64_BAR`` of the
+   float64 chain-batched sweep; (d) ``tools.measure_scaling`` at 1 and 2
+   devices (``tools.dryrun_multichip`` is left out for time: its parts
+   run above at full width); (e) ``parallel.distributed
+   .initialize`` of a one-process NCCL group, read by ``cohort_partition``
+   and an ``all_reduce``, then destroyed. Prints each part's wall and peak
+   device memory.
 
 The line before the last holds the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -294,6 +317,19 @@ DECODE_DISAGREEMENT_BAR = 1e-2
 SWEEP_PARTS = ('emissions', 'p_allele_swap', 'be_bank', 'p_cn_chain',
                'p_breakpoint', 'p_outlier_total', 'p_outlier_allele')
 PROBE_WAVES = (1, 8, 16, 24, 48)
+# phase 15: the restarts and depth of the mesh fits (a: a wave of 8 on
+# each of 2 virtual devices; b: the restart x chain mesh), the blocked
+# scan's block count, and the bounds: tests/test_parallel.py's for a
+# restart x chain fit against one device, its blocked sweep's in float64,
+# phase 4's float32 against float64
+MESH_RESTARTS, MESH_2D_RESTARTS = 16, 2
+MESH_EM_ITER, MESH_UPDATE_ITER = 2, 5
+MESH_2D_BARS = dict(h_rtol=1e-5, posterior_atol=1e-6, elbo_rtol=1e-6)
+BLOCKS = 8
+BLOCKED_F64_BAR = 1e-9
+F32_VS_F64_BAR = 1e-3
+# phase 15's device, listed several times in its meshes
+CARD = 'cuda:0'
 
 
 START = time.time()
@@ -682,7 +718,8 @@ def phase_kernel_chains(label, inputs, scaled=False, log_space=None):
     for sched_label, rows in traces.items():
         log_trace('{} {}'.format(label, sched_label), rows)
     return dict(max_abs_err=max_err, ms=cluster_ms[fb_chains.CLUSTER],
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by), k
+                kernel_ms=kernel_ms[fb_chains.CLUSTER], plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by), k
 
 
 def log_trace(label, rows):
@@ -1267,9 +1304,11 @@ def check_sweep_budget(out, kernel, kernel_ms):
                 R, out['p_cn_chain_ms_per_sweep'], kernel, kernel_ms))
 
 
-def phase_tools(grouped_ms, chains_ms):
+def phase_tools(grouped_ms, chains_kernel_ms):
     """The measurement tools at full width through their ``main(argv)``;
-    returns the ``fb_grouped`` and ``fb_chains`` launches they made."""
+    returns the ``fb_grouped`` and ``fb_chains`` launches they made.
+    ``grouped_ms`` is phase 2's ``fb_grouped`` through its wrapper,
+    ``chains_kernel_ms`` phase 2b's ``fb_chains`` kernel alone."""
     import torch
     here = os.path.dirname(os.path.abspath(__file__))
     out_dir = os.path.join(here, 'build', 'chip_smoke', 'tools')
@@ -1284,10 +1323,10 @@ def phase_tools(grouped_ms, chains_ms):
     t0 = time.time()
     # (a) a sweep's parts, a wave and one restart
     for R, kernel, kernel_ms in ((WAVE, 'fb_grouped', grouped_ms),
-                                 (0, 'fb_chains', chains_ms)):
+                                 (0, 'fb_chains alone', chains_kernel_ms)):
         label = 'sweep_budget_R{}'.format(R)
         out = run_tool(out_dir, label, 'sweep_budget', width + [
-            '--restarts', str(R), '--iters', '5'] + out_file(label))
+            '--restarts', str(R), '--iters', '2'] + out_file(label))
         log('phase 5b: sweep_budget --restarts {}: device ms a sweep by '
             'range {}'.format(R, json.dumps(
                 {c: out[c + '_ms_per_sweep'] for c in SWEEP_PARTS})))
@@ -1300,7 +1339,7 @@ def phase_tools(grouped_ms, chains_ms):
                 out['unattributed_ms_per_block']))
         check_sweep_budget(out, kernel, kernel_ms)
         log('phase 5b: sweep_budget --restarts {}: the chain update {:.3f} '
-            'ms a sweep, {} alone {:.3f} ms'.format(
+            'ms a sweep, {} {:.3f} ms'.format(
                 R, out['p_cn_chain_ms_per_sweep'], kernel, kernel_ms))
 
     # (b) one batched EM iteration by range
@@ -1317,14 +1356,14 @@ def phase_tools(grouped_ms, chains_ms):
 
     # (c) the phase timings
     out = run_tool(out_dir, 'fit_budget', 'fit_budget', width + [
-        '--restarts', str(WAVE), '--iters', '3'] + out_file('fit_budget'))
+        '--restarts', str(WAVE), '--iters', '1'] + out_file('fit_budget'))
     log('phase 5b: fit_budget: ' + json.dumps(
         {k: v for k, v in out.items() if k.endswith(('_s', '_ms'))}))
 
     # (d) the restart axis
     rows = run_tool(out_dir, 'probe_restart_scaling',
                     'probe_restart_scaling',
-                    width + ['--iters', '2']
+                    width + ['--iters', '1']
                     + out_file('probe_restart_scaling')
                     + [str(r) for r in PROBE_WAVES])
     for row in rows:
@@ -6495,6 +6534,254 @@ def phase_cohort(smi, fixture):
     return expected
 
 
+def mesh_model(data, use_kernels=None):
+    """Phase 15's model: phase 2's problem on the card in float32 at
+    MESH_EM_ITER x MESH_UPDATE_ITER."""
+    import torch
+    model = make_model(data, CN_MAX_FULL, CARD, torch.float32,
+                       use_kernels=use_kernels)
+    model.num_em_iter = MESH_EM_ITER
+    model.num_update_iter = MESH_UPDATE_ITER
+    return model
+
+
+def timed_mesh_fit(label, data, h_inits, weights, chunk_size, mesh=None,
+                   use_kernels=None):
+    """``fit_restarts_batched`` under torch's deterministic algorithms
+    (warnings only); returns its results and the chain kernels' launches
+    during it, and logs its wall."""
+    from remixt_tpu_torch.models.fit_batched import fit_restarts_batched
+    import torch
+    model = mesh_model(data, use_kernels=use_kernels)
+    torch.cuda.synchronize()
+    reset_chain_launches()
+    t0 = time.time()
+    results, ops = deterministic_fit(lambda: fit_restarts_batched(
+        model, h_inits, weights, chunk_size=chunk_size, mesh=mesh))
+    torch.cuda.synchronize()
+    launches = chain_launches()
+    log('phase 15 {}: {} restarts{} in {:.2f} s; launches {}; ops torch '
+        'names as nondeterministic: {}'.format(
+            label, len(results), '' if mesh is None else ' on {}'.format(
+                mesh), time.time() - t0, json.dumps(launches),
+            json.dumps(ops) if ops else 'none'))
+    return results, launches
+
+
+def fits_equal(got, ref):
+    """The names of the fields of two restart lists that differ in any
+    bit."""
+    import torch
+    differ = set()
+    for g, r in zip(got, ref):
+        for tree in ('params', 'state'):
+            for name, x in g[tree]._asdict().items():
+                if not torch.equal(x, getattr(r[tree], name)):
+                    differ.add(tree + '.' + name)
+        for key in ('elbo', 'elbo_diff'):
+            if g[key] != r[key]:
+                differ.add(key)
+    return sorted(differ)
+
+
+def phase_mesh_fits(data):
+    """Phase 15 (a) and (b); returns the fb_grouped launches."""
+    import torch
+    from remixt_tpu_torch.parallel import distributed
+    card = torch.device(CARD)
+    h_inits, weights = restart_grid(data['h'], MESH_RESTARTS, seed=15)
+
+    # (a) a wave of WAVE on each of two virtual devices against one device
+    mesh = distributed.make_training_mesh([card] * 2)
+    t0 = time.time()
+    torch.cuda.reset_peak_memory_stats()
+    meshed, launches = timed_mesh_fit('(a) mesh', data, h_inits, weights,
+                                      2 * WAVE, mesh=mesh)
+    waves = -(-MESH_RESTARTS // (2 * WAVE))
+    expect_launches('phase 15 (a) mesh', launches, 'fb_grouped',
+                    waves * 2 * MESH_EM_ITER * MESH_UPDATE_ITER)
+    grouped = launches['fb_grouped']
+    single, launches = timed_mesh_fit('(a) one device', data, h_inits,
+                                      weights, WAVE)
+    expect_launches('phase 15 (a) one device', launches, 'fb_grouped',
+                    -(-MESH_RESTARTS // WAVE) * MESH_EM_ITER
+                    * MESH_UPDATE_ITER)
+    grouped += launches['fb_grouped']
+    elbos = np.array([r['elbo'] for r in meshed])
+    differ = fits_equal(meshed, single)
+    log('phase 15 (a): {} restarts, {} EM x {} VI, on 2 virtual devices of '
+        'the card (a wave of {} each) against one device (waves of {}): '
+        'fields that differ in any bit: {}; ELBOs {}; part wall {:.2f} s, '
+        'max_memory_allocated {:.3f} GB'.format(
+            MESH_RESTARTS, MESH_EM_ITER, MESH_UPDATE_ITER, WAVE, WAVE,
+            differ or 'none', np.array2string(elbos, precision=2),
+            time.time() - t0, torch.cuda.max_memory_allocated() / 1e9))
+    if differ or not np.all(np.isfinite(elbos)):
+        raise AssertionError('phase 15 (a): the mesh fit differs from one '
+                             'device in {}'.format(differ))
+    del meshed, single
+
+    # (b) restart x chain, the kernel on each chain group, against one
+    # device
+    t0 = time.time()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = distributed.make_training_mesh(
+        [card] * 4, num_restarts=MESH_2D_RESTARTS)
+    if (mesh.shape['restart'], mesh.shape['chain']) != (2, 2):
+        raise AssertionError('phase 15 (b): mesh {}'.format(mesh))
+    h2, w2 = h_inits[:MESH_2D_RESTARTS], weights[:MESH_2D_RESTARTS]
+    meshed, launches = timed_mesh_fit('(b) mesh', data, h2, w2,
+                                      MESH_2D_RESTARTS, mesh=mesh)
+    # one launch a chain group of each restart shard a sweep
+    expect_launches('phase 15 (b) mesh', launches, 'fb_grouped',
+                    MESH_2D_RESTARTS * 2 * MESH_EM_ITER * MESH_UPDATE_ITER)
+    grouped += launches['fb_grouped']
+    single, launches = timed_mesh_fit('(b) one device', data, h2, w2, 1)
+    expect_launches('phase 15 (b) one device', launches, 'fb_grouped',
+                    MESH_2D_RESTARTS * MESH_EM_ITER * MESH_UPDATE_ITER)
+    grouped += launches['fb_grouped']
+    figures = {
+        'h_max_rel_diff': max(float(((g['params'].h - r['params'].h).abs()
+                                     / r['params'].h.abs()).max())
+                              for g, r in zip(meshed, single)),
+        'posterior_max_abs_diff': max(
+            float((g['state'].posterior_marginals
+                   - r['state'].posterior_marginals).abs().max())
+            for g, r in zip(meshed, single)),
+        'elbo_max_rel_diff': max(abs(g['elbo'] - r['elbo']) / abs(r['elbo'])
+                                 for g, r in zip(meshed, single))}
+    log('phase 15 (b): {} restarts on {} (each restart shard\'s chains '
+        'over its 2 devices, the kernel on each group), {} EM x {} VI, '
+        'against one device: '
+        '{}; bars {}; part wall {:.2f} s, max_memory_allocated {:.3f} GB'
+        .format(MESH_2D_RESTARTS, mesh, MESH_EM_ITER, MESH_UPDATE_ITER,
+                json.dumps(figures), json.dumps(MESH_2D_BARS),
+                time.time() - t0, torch.cuda.max_memory_allocated() / 1e9))
+    if not (figures['h_max_rel_diff'] <= MESH_2D_BARS['h_rtol']
+            and figures['posterior_max_abs_diff']
+            <= MESH_2D_BARS['posterior_atol']
+            and figures['elbo_max_rel_diff'] <= MESH_2D_BARS['elbo_rtol']):
+        raise AssertionError('phase 15 (b): the restart x chain fit is off '
+                             'one device\'s: {}'.format(figures))
+    return grouped
+
+
+def phase_blocked_sweep(data):
+    """Phase 15 (c): one blocked sweep of restart 0 at BLOCKS blocks over 2
+    virtual devices, float64 and float32, against the float64
+    chain-batched sweep."""
+    import torch
+    from remixt_tpu_torch.models import engine as eng
+    from remixt_tpu_torch.parallel import chain, distributed
+    t0 = time.time()
+    torch.cuda.reset_peak_memory_stats()
+    block_mesh = distributed.Mesh([torch.device(CARD)] * 2, ('block',))
+    marg = {}
+    reset_chain_launches()
+    for name, dtype in (('ref', torch.float64), ('f64', torch.float64),
+                        ('f32', torch.float32)):
+        spec, params_b, state_b = initial_batch(
+            make_model(data, CN_MAX_FULL, CARD, dtype), [data['h']],
+            [1e-7])
+        if name != 'ref':
+            chain.enable_block_sharding(spec, block_mesh, BLOCKS)
+        torch.cuda.synchronize()
+        t1 = time.time()
+        swept = eng.variational_sweep(spec, eng.take(params_b, 0),
+                                      eng.take(state_b, 0))
+        marg[name] = swept.posterior_marginals.double()
+        torch.cuda.synchronize()
+        log('phase 15 (c): {} sweep in {:.3f} s'.format(
+            {'ref': 'float64 chain-batched', 'f64': 'float64 blocked',
+             'f32': 'float32 blocked'}[name], time.time() - t1))
+    expect_launches('phase 15 (c)', chain_launches(), 'fb_grouped', 0)
+    diffs = {k: float((marg[k] - marg['ref']).abs().max())
+             for k in ('f64', 'f32')}
+    log('phase 15 (c): blocked sweep, {} blocks over 2 virtual devices, '
+        'posterior max abs diff from the float64 chain-batched sweep: '
+        'float64 {:.3e} (bar {:.0e}), float32 {:.3e} (bar {:.0e}); part '
+        'wall {:.2f} s, max_memory_allocated {:.3f} GB'.format(
+            BLOCKS, diffs['f64'], BLOCKED_F64_BAR, diffs['f32'],
+            F32_VS_F64_BAR, time.time() - t0,
+            torch.cuda.max_memory_allocated() / 1e9))
+    if not (diffs['f64'] < BLOCKED_F64_BAR and diffs['f32'] <= F32_VS_F64_BAR):
+        raise AssertionError('phase 15 (c): blocked sweep off: {}'.format(
+            diffs))
+
+
+def phase_mesh_tools():
+    """Phase 15 (d): measure_scaling at 1 and 2 virtual devices of the
+    card; returns its fb_grouped launches."""
+    from remixt_tpu_torch.tools import measure_scaling
+    here = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(here, 'build', 'chip_smoke', 'tools')
+    os.makedirs(out_dir, exist_ok=True)
+    t0 = time.time()
+    reset_chain_launches()
+    with open(os.path.join(out_dir, 'measure_scaling.log'), 'w') as f, \
+            contextlib.redirect_stdout(f):
+        out = measure_scaling.main([
+            '--devices', CARD, CARD, '--n', str(N_FULL), '--events',
+            str(EVENTS_FULL), '--iters', '3', '--out',
+            os.path.join(out_dir, 'measure_scaling.json')])
+    for row in out['rows']:
+        log('phase 15 (d): measure_scaling ' + json.dumps(row))
+    # one warm-up and 3 loops of 3 sweeps, one launch a shard each
+    expected = sum(row['num_devices'] * (1 + 3 * 3) for row in out['rows'])
+    expect_launches('phase 15 (d) measure_scaling', chain_launches(),
+                    'fb_grouped', expected)
+    if out['meaningful'] or [r['num_devices'] for r in out['rows']] != [1, 2]:
+        raise AssertionError('phase 15 (d): rows {}'.format(out['rows']))
+    log('phase 15 (d): part wall {:.2f} s'.format(time.time() - t0))
+    return expected
+
+
+def phase_process_group():
+    """Phase 15 (e): a one-process NCCL group up, read and down (gloo
+    without CUDA, as ``initialize`` picks)."""
+    import socket
+    import torch
+    import torch.distributed as dist
+    from remixt_tpu_torch.parallel import distributed
+    t0 = time.time()
+    with socket.socket() as s:
+        s.bind(('localhost', 0))
+        port = s.getsockname()[1]
+    distributed.initialize(coordinator_address='localhost:{}'.format(port),
+                           num_processes=1, process_id=0, timeout_s=120)
+    try:
+        total = torch.ones(1, device=CARD)
+        dist.all_reduce(total)
+        got = (dist.get_backend(), distributed.rank(),
+               distributed.world_size(),
+               distributed.cohort_partition(['tumour_b', 'tumour']),
+               float(total))
+    finally:
+        dist.destroy_process_group()
+    log('phase 15 (e): process group (backend, rank, size, cohort share, '
+        'all_reduce of 1) {}; torn down: {}; part wall {:.2f} s'.format(
+            got, not dist.is_initialized(), time.time() - t0))
+    backend = 'nccl' if torch.cuda.is_available() else 'gloo'
+    if got != (backend, 0, 1, ['tumour', 'tumour_b'], 1.0) or \
+            dist.is_initialized():
+        raise AssertionError('phase 15 (e): {}'.format(got))
+
+
+def phase_multi_device(smi):
+    """Phase 15: multi-device fitting on virtual devices of the one card;
+    returns the fb_grouped launches."""
+    t0 = time.time()
+    data = simulate(N_FULL, CN_MAX_FULL, EVENTS_FULL, CHAINS_FULL, seed=0)
+    grouped = phase_mesh_fits(data)
+    phase_blocked_sweep(data)
+    grouped += phase_mesh_tools()
+    phase_process_group()
+    log('phase 15: {:.1f} s, fb_grouped launches {}; the mesh rows share '
+        'one card: no scaling is measured; {}'.format(
+            time.time() - t0, grouped, smi))
+    return grouped
+
+
 def _phase_child(conn, phase, args, start):
     """``phase(*args)`` in a process of its own; sends ('ok', its result)
     or ('failed', the error) through ``conn``."""
@@ -6559,7 +6846,7 @@ def main():
     grouped['launches'], batched_results = phase_fit(data)
     phase_small_f32_vs_f64()
     phase_profile(data)
-    tools_grouped, tools_chains = phase_tools(grouped['ms'], chains['ms'])
+    tools_grouped, tools_chains = phase_tools(grouped['ms'], chains['kernel_ms'])
     grouped['launches'] += tools_grouped
     chains['launches'], sequential_results = phase_sequential_fit(
         data, batched_results)
@@ -6584,6 +6871,7 @@ def main():
     phase_run_launches = start_phase('phase 11', phase_run, smi, fixture)
     grouped['launches'] += phase_read_benchmark(smi)
     phase_reference_build(smi)
+    grouped['launches'] += phase_multi_device(smi)
     grouped['launches'] += phase_run_launches()
     grouped['launches'] += phase_cohort_launches()
 

@@ -13,10 +13,15 @@ the writer ``write_store`` (``io/store.py``: an HDF5 file, or a directory
 of TSV tables where the store's name does not end in ``.h5``).
 
 The grid runs through the batched restart fit (``models/fit_batched.py``)
-in padded waves, or one restart at a time through ``BreakpointModel.fit``
-on one shared model (``batch_restarts: false``, a grid of one restart,
-``optimal_initialization``). A cohort of samples is fitted sample by
-sample, one worker thread per device (``fit_many_cohort``).
+in padded waves, on one device or, with ``use_device_mesh`` (off by
+default), sharded over a mesh of every local CUDA device where there are
+several (``_production_mesh``), or one
+restart at a time through ``BreakpointModel.fit`` on one shared model
+(``batch_restarts: false``, a grid of one restart,
+``optimal_initialization``). A cohort of samples splits the devices into
+groups, one worker thread per group fitting its samples one after
+another, on the group's own mesh where it has several devices and
+``use_device_mesh`` is set (``fit_many_cohort``).
 """
 
 import contextlib
@@ -37,6 +42,9 @@ from remixt_tpu_torch.models.fit_batched import fit_restarts_batched
 
 INIT_COLUMNS = ['mode_idx', 'h_normal', 'h_tumour', 'mix_frac',
                 'divergence_weight', 'max_depth']
+
+# ``mesh`` not given: the production mesh
+_UNSET = object()
 
 
 def _load_pickle(filename):
@@ -172,7 +180,8 @@ def fit(experiment, init_params, config, snapshot_filename=None, device=None):
                           snapshot_filename=snapshot_filename)
 
 
-def fit_many(experiment, init_params_dict, config, device=None):
+def fit_many(experiment, init_params_dict, config, device=None,
+             mesh=_UNSET):
     """Fit every restart of the grid on one shared model.
 
     Args:
@@ -180,15 +189,25 @@ def fit_many(experiment, init_params_dict, config, device=None):
         init_params_dict: {init_id: dict with h_normal, h_tumour, mix_frac,
             divergence_weight, max_depth, mode_idx}
         config: config dict overlaying :mod:`remixt_tpu_torch.defaults`
-        device: torch device; ``None`` means CUDA and raises without one
+        device: torch device; ``None`` means CUDA and raises without one,
+            and the batched grid then shards over every local CUDA device
+            where ``use_device_mesh`` is set (``_production_mesh``); an
+            explicit device keeps the fit on it
+        mesh: the batched fit's mesh instead (None for none); the model
+            lives on ``device``
 
     Returns {init_id: fit_results}.
     """
+    explicit = device is not None
     device = resolve_device(device)
     batched = remixt_tpu_torch.config.get_param(config, 'batch_restarts') \
         and not config.get('optimal_initialization', False)
     if batched and len(init_params_dict) > 1:
-        return _fit_many_batched(experiment, init_params_dict, config, device)
+        if mesh is _UNSET:
+            mesh = (None if explicit else _production_mesh(
+                config, num_restarts=len(init_params_dict)))
+        return _fit_many_batched(experiment, init_params_dict, config, device,
+                                 mesh=mesh)
 
     results = {}
     model = None
@@ -212,18 +231,44 @@ def _restart_h_init(init_params):
     ])
 
 
-def _fit_many_batched(experiment, init_params_dict, config, device):
+def _production_mesh(config, num_restarts=None, devices=None):
+    """The device mesh of the restart-sharded production fit, or None.
+
+    With more than one device (``devices``; None means every local CUDA
+    device, and raises without one) and ``use_device_mesh`` true, the
+    devices go on the restart axis up to the grid's size and the rest on
+    the chain axis (``parallel.distributed.make_training_mesh``): a grid
+    smaller than the device count fits on a restart × chain mesh. One
+    device, or the key false, means None: the plain batched fit.
+    """
+    from remixt_tpu_torch.parallel import distributed
+    if not remixt_tpu_torch.config.get_param(config, 'use_device_mesh'):
+        return None
+    devices = cohort_devices(devices)
+    if len(devices) <= 1:
+        return None
+    return distributed.make_training_mesh(devices=devices,
+                                          num_restarts=num_restarts)
+
+
+def _fit_many_batched(experiment, init_params_dict, config, device,
+                      mesh=_UNSET):
+    """The batched grid fit on one model on ``device``, sharded over
+    ``mesh`` (not given: ``_production_mesh``; None: no mesh)."""
     init_ids = list(init_params_dict.keys())
     first = init_params_dict[init_ids[0]]
     model = build_model(experiment, first, config, device)
     model.breakpoint_init = None
 
+    if mesh is _UNSET:
+        mesh = _production_mesh(config, num_restarts=len(init_ids))
     raw = fit_restarts_batched(
         model,
         [_restart_h_init(init_params_dict[i]) for i in init_ids],
         [init_params_dict[i]['divergence_weight'] for i in init_ids],
         chunk_size=remixt_tpu_torch.config.get_param(
-            config, 'restart_chunk_size'))
+            config, 'restart_chunk_size'),
+        mesh=mesh)
 
     results = {}
     for init_id, restart in zip(init_ids, raw):
@@ -241,11 +286,9 @@ def _fit_many_batched(experiment, init_params_dict, config, device):
 def cohort_devices(devices=None):
     """The devices of a cohort fit: ``None`` means every local CUDA
     device, ``cuda:0`` to ``cuda:{n-1}``, and raises without one."""
-    import torch
     if devices is None:
-        resolve_device('cuda')
-        return [torch.device('cuda', i)
-                for i in range(torch.cuda.device_count())]
+        from remixt_tpu_torch.parallel import distributed
+        return distributed.local_cuda_devices()
     devices = [resolve_device(d) for d in devices]
     if not devices:
         raise ValueError('a cohort fit needs at least one device')
@@ -254,15 +297,20 @@ def cohort_devices(devices=None):
 
 def fit_many_cohort(experiments, init_params_dicts, config, devices=None):
     """Fit every sample's restart grid, each sample's with its own
-    ``sample_specific`` config through ``fit_many`` on one device.
+    ``sample_specific`` config through ``fit_many``.
 
     This process takes its share of the samples
     (``parallel.distributed.cohort_partition``). With one sample, one
     device, ``use_cohort_sharding`` false or the grid not batched
     (``batch_restarts`` false, or ``optimal_initialization``) they are
-    fitted one after another on the first device. Otherwise they are dealt
-    to the devices in that order, and one worker thread per device fits
-    its samples one after another on it, so no two fits share a device.
+    fitted one after another on the first device. Otherwise the devices
+    split into ``min(samples, devices)`` contiguous groups
+    (``np.array_split``), the samples are dealt to the groups in that
+    order, and one worker thread per group fits its samples one after
+    another: on its one device, or on the group's production mesh
+    (``_production_mesh``, with ``use_device_mesh``; else on its first
+    device) with the model on its first device. No two
+    fits share a device.
 
     Args:
         experiments: {sample_id: Experiment}
@@ -281,25 +329,41 @@ def fit_many_cohort(experiments, init_params_dicts, config, devices=None):
     sample_ids = distributed.cohort_partition(list(experiments))
     devices = cohort_devices(devices)
 
-    def fit_samples(share, device):
+    def fit_samples(share, group):
+        device = group[0]
         context = (torch.cuda.device(device) if device.type == 'cuda'
                    else contextlib.nullcontext())
+        fitted = {}
         with context:
-            return {sid: fit_many(
-                experiments[sid], init_params_dicts[sid],
-                remixt_tpu_torch.config.get_sample_config(config, sid),
-                device=device) for sid in share}
+            for sid in share:
+                sample_config = remixt_tpu_torch.config.get_sample_config(
+                    config, sid)
+                if len(group) > 1:
+                    fitted[sid] = fit_many(
+                        experiments[sid], init_params_dicts[sid],
+                        sample_config, device=device,
+                        mesh=_production_mesh(
+                            sample_config,
+                            num_restarts=len(init_params_dicts[sid]),
+                            devices=group))
+                else:
+                    fitted[sid] = fit_many(
+                        experiments[sid], init_params_dicts[sid],
+                        sample_config, device=device)
+        return fitted
 
     batched = get('batch_restarts') and not config.get(
         'optimal_initialization', False)
     if len(sample_ids) <= 1 or len(devices) <= 1 or not batched or \
             not get('use_cohort_sharding'):
-        return fit_samples(sample_ids, devices[0])
+        return fit_samples(sample_ids, devices[:1])
 
     workers = min(len(devices), len(sample_ids))
+    groups = [[devices[i] for i in g]
+              for g in np.array_split(np.arange(len(devices)), workers)]
     with ThreadPoolExecutor(max_workers=workers) as pool:
         futures = [pool.submit(fit_samples, sample_ids[i::workers],
-                               devices[i]) for i in range(workers)]
+                               groups[i]) for i in range(workers)]
         fitted = {}
         for future in futures:
             fitted.update(future.result())

@@ -2,11 +2,13 @@
 
 A copy of the reference-data names and the algorithm parameters of
 ``remixt_tpu/defaults.py`` (same names and values, so user YAML configs
-carry over). Values are module attributes overlaid by a user config dict
+carry over; ``use_device_mesh`` alone differs in value). Values are module attributes overlaid by a user config dict
 via :mod:`remixt_tpu_torch.config`. The download URLs are the sources
-``ref_data.create_ref_data`` fetches with ``wget``. Accelerator knobs of the
-JAX package (Pallas switch, compilation cache, device meshes) have no
-meaning here and are not copied.
+``ref_data.create_ref_data`` fetches with ``wget``. ``use_device_mesh``
+shards the batched fit over the local CUDA devices (off by default: it
+costs time here); the JAX package's
+other accelerator knobs (Pallas switch, compilation cache) have no meaning
+here and are not copied.
 """
 
 ###
@@ -164,7 +166,8 @@ engine_dtype = 'float32'
 batch_restarts = True
 
 # Restarts advanced together per batched chunk (the wave); every chunk is
-# padded to this size
+# padded to this size, rounded up to a multiple of the mesh's restart
+# extent on a device mesh
 restart_chunk_size = 8
 
 # Try every minor-depth mode with at most this mass fraction strictly below
@@ -172,7 +175,17 @@ restart_chunk_size = 8
 # mode alone
 normal_mode_mass_tolerance = 0.05
 
-# Fit a multi-sample cohort with one worker thread per local CUDA device,
-# each fitting its share of the samples one after another; false fits the
-# samples one after another on the first device
+# Shard the batched fit's restart waves over every local CUDA device when
+# more than one is visible (restart x chain when the grid is smaller than
+# the device count; analysis/pipeline._production_mesh); false fits on one
+# device. False here, where the JAX package has true: each shard issues a
+# whole wave's launches from the one host thread, so on 2 and 4 H100s the
+# sharded fit took 1.45 to 3.2 times one card's wall (PERF.md)
+use_device_mesh = False
+
+# Fit a multi-sample cohort with the local CUDA devices split into one
+# group per sample (at most), one worker thread per group fitting its
+# share of the samples one after another, on the group's mesh where it has
+# several devices and use_device_mesh is set; false fits the samples one after another on the first
+# device
 use_cohort_sharding = True

@@ -20,6 +20,12 @@ so both fits draw the same subsamples. ``update_h`` (scipy's L-BFGS-B),
 ``update_param`` (one parameter's grid zoom) and ``param_sample_weights``
 (one parameter's weights) are the JAX package's stepwise alternatives.
 
+With ``mesh=`` (a :class:`~remixt_tpu_torch.parallel.distributed.Mesh`)
+the batched updates run per restart shard (``parallel/restarts.py``),
+each shard on its replica of the spec, as the JAX updates shard_map over
+the restart axis. The host draws every restart's subsamples in restart
+order from its own stream, so they equal the unsharded fit's.
+
 The fused updates' parts run inside ``torch.profiler.record_function``
 ranges named as the JAX package's ``jax.named_scope`` (``EM_RANGES``),
 disjoint siblings that enclose their Python loops whole
@@ -34,6 +40,7 @@ import torch
 from torch.profiler import record_function
 
 from remixt_tpu_torch.models import engine as eng
+from remixt_tpu_torch.parallel import restarts as par
 
 logger = logging.getLogger('remixt_tpu_torch.em')
 
@@ -103,13 +110,14 @@ def _h_update(spec, params_b, state_b, idx):
     return params_b._replace(h=h_out), accept
 
 
-def update_h_fused_batched(spec, params_b, state_b, rngs):
+def update_h_fused_batched(spec, params_b, state_b, rngs, mesh=None):
     """Restart-batched EM h update; one independent subsample per restart,
-    drawn from that restart's RNG stream."""
+    drawn from that restart's RNG stream. With ``mesh``, per restart
+    shard."""
     idx = torch.as_tensor(
         np.stack([create_sample_indices(rng, spec.N) for rng in rngs]),
-        dtype=torch.long, device=spec.device)
-    return _h_update(spec, params_b, state_b, idx)
+        dtype=torch.long, device=spec.device if mesh is None else 'cpu')
+    return par.spec_fn(mesh, _h_update, 3)(spec, params_b, state_b, idx)
 
 
 # which emission components each scalar parameter touches: half 'total'
@@ -186,11 +194,24 @@ def _params_update(spec, params_b, state_b, names, bounds, sample_idxs):
     return params_b, torch.stack(accepts, dim=1), halves
 
 
+def _params_update_elbo(spec, params_b, state_b, sample_idxs, names,
+                        bounds):
+    """``_params_update`` and the ELBO of its result: (params_b, accepts,
+    elbo_b)."""
+    params_b, accepts, (tot_b, alle_b) = _params_update(
+        spec, params_b, state_b, names, bounds, sample_idxs)
+    with torch.no_grad(), record_function('em_elbo_assembly'):
+        elbo_b = eng.calculate_elbo_from_halves_restarts(
+            spec, params_b, state_b, tot_b, alle_b)
+    return params_b, accepts, elbo_b
+
+
 def update_params_fused_batched(spec, params_b, state_b, names, bounds, rngs,
-                                weights_lists=None):
+                                weights_lists=None, mesh=None):
     """Restart-batched EM update of all scalar likelihood parameters and
     the ELBO of the result. ``weights_lists[r][i]`` are restart r's
-    sampling weights for parameter i. Returns (params_b, accepts, elbo)."""
+    sampling weights for parameter i. With ``mesh``, per restart shard.
+    Returns (params_b, accepts, elbo)."""
     k = sample_size_for(spec.N)
     idxs = np.empty((len(rngs), len(names), k), dtype=np.int64)
     for r, rng in enumerate(rngs):
@@ -198,13 +219,10 @@ def update_params_fused_batched(spec, params_b, state_b, names, bounds, rngs,
             weights = (None if weights_lists is None
                        else weights_lists[r][i])
             idxs[r, i] = create_sample_indices(rng, spec.N, weights)
-    params_b, accepts, (tot_b, alle_b) = _params_update(
-        spec, params_b, state_b, tuple(names), bounds,
-        torch.as_tensor(idxs, device=spec.device))
-    with torch.no_grad(), record_function('em_elbo_assembly'):
-        elbo_b = eng.calculate_elbo_from_halves_restarts(
-            spec, params_b, state_b, tot_b, alle_b)
-    return params_b, accepts, elbo_b
+    idxs = torch.as_tensor(idxs,
+                           device=spec.device if mesh is None else 'cpu')
+    return par.spec_fn(mesh, _params_update_elbo, 3)(
+        spec, params_b, state_b, idxs, tuple(names), bounds)
 
 
 def _param_weights_all(spec, state_b, names):
@@ -238,13 +256,16 @@ def _normalize_weight_rows(w):
 
 
 @torch.no_grad()
-def param_sample_weights_all_batched(spec, state_b, names):
+def param_sample_weights_all_batched(spec, state_b, names, mesh=None):
     """Posterior-responsibility sampling weights of every parameter for
-    every restart: one device computation and one (R, P, N) host pull.
-    Returns a list of R weight lists."""
-    w_b = _param_weights_all(spec, state_b, names).cpu().numpy().astype(
-        np.float64)
-    return [_normalize_weight_rows(w) for w in w_b]
+    every restart: one device computation (per restart shard with
+    ``mesh``) and one (R, P, N) host pull. Returns a list of R weight
+    lists."""
+    w_b = par.spec_fn(mesh, _param_weights_all, 1)(spec, state_b, names)
+    if mesh is not None:
+        w_b = par.gather(w_b, 'cpu')
+    return [_normalize_weight_rows(w)
+            for w in w_b.cpu().numpy().astype(np.float64)]
 
 
 # ===========================================================================

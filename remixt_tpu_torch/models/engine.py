@@ -25,6 +25,15 @@ factored state space and transition banks, written for PyTorch.
   the kernel, CPU tensors take its plain version), or the plain scan of
   ``ops/fb_scan.py``, the JAX package's XLA scan, under the log-space bank.
   A float64 engine takes the scan by default, on every device.
+* Multi-device routing, set by ``parallel/chain.py``: a spec whose
+  ``chain_devices`` are set (chain sharding) splits its chains over those
+  devices on both chain updates, each group through the ``fb_grouped``
+  kernel, or through the plain scan without ``use_kernels`` (the JAX
+  engine's only route there); ``num_chain_blocks`` above 1 sends the
+  single-restart chain update through the blocked two-pass scan
+  (``ops/fb_blocked.py``), its blocks over ``block_devices`` when set.
+  ``replicate`` copies a spec onto another device, one replica a mesh
+  shard (``parallel/restarts.py``).
 * Each part of a sweep runs inside a ``torch.profiler.record_function``
   range named as the JAX engine's ``jax.named_scope`` (``SWEEP_RANGES``),
   disjoint siblings, so a profile splits a sweep by part
@@ -36,6 +45,7 @@ encoded as boolean planes with double-``where`` guards, so
 ``torch.autograd`` stays NaN-free.
 """
 
+import copy
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -44,7 +54,7 @@ from torch.profiler import record_function
 
 from remixt_tpu_torch.device import resolve_device
 from remixt_tpu_torch.models import states as states_mod
-from remixt_tpu_torch.ops import fb_chains, fb_grouped, fb_scan
+from remixt_tpu_torch.ops import fb_blocked, fb_chains, fb_grouped, fb_scan
 from remixt_tpu_torch.ops.special import (
     exp_normalize, lgamma_shift, plogp)
 
@@ -326,6 +336,13 @@ class ModelSpec:
         self.prior_outlier_total = 0.01
         self.prior_outlier_allele = 0.01
 
+        # multi-device routing (parallel/chain.py): the chain groups'
+        # devices and scans, and the blocked scan's block count and devices
+        self.chain_devices = None
+        self.chain_groups = None
+        self.num_chain_blocks = 1
+        self.block_devices = None
+
     # -- initial values (one restart; stack() adds the restart axis) --------
 
     def init_params(self, h_init, divergence_weight,
@@ -387,6 +404,19 @@ class ModelSpec:
             p_outlier_total=prior(self.prior_outlier_total),
             p_outlier_allele=prior(self.prior_outlier_allele),
         )
+
+
+def replicate(spec, device):
+    """A copy of ``spec`` with its tensors on ``device`` (shared where
+    they are there already) and its own routing attributes: the replica
+    of a mesh shard, which no other shard's thread touches."""
+    replica = copy.copy(spec)
+    device = torch.device(device)
+    for name, value in vars(spec).items():
+        if torch.is_tensor(value):
+            setattr(replica, name, value.to(device))
+    replica.device = device
+    return replica
 
 
 # ===========================================================================
@@ -806,7 +836,10 @@ def update_p_cn_restarts(spec, params_b, state_b, ll_tot, ll_alle,
     forward-backward: the kernel under the sweep's exp-space breakend bank,
     or the scan under the log-space bank of the same q(brk)."""
     frame_b = _mix_framelogprob(spec, params_b, state_b, ll_tot, ll_alle)
-    if spec.use_kernels:
+    if spec.chain_devices is not None:
+        alphas, betas, log_norm = _chain_groups(spec, frame_b,
+                                                state_b.p_breakpoint, be_exp_b)
+    elif spec.use_kernels:
         alphas, betas, log_norm = fb_grouped.forward_backward_chains_grouped(
             frame_b, spec.static_bank, be_exp_b, spec.chain_bank_idx,
             spec.chain_seg_map, spec.chain_last)
@@ -816,6 +849,21 @@ def update_p_cn_restarts(spec, params_b, state_b, ll_tot, ll_alle,
             breakend_tmats(spec, state_b.p_breakpoint), spec.restart_plan,
             spec.chain_seg_map, spec.chain_last)
     return _with_chain(state_b, frame_b, alphas, betas, log_norm)
+
+
+def _chain_groups(spec, frame_b, p_breakpoint_b, be_exp_b):
+    """The restart-batched chain update with its chains split over
+    ``spec.chain_devices``: each group through the ``fb_grouped`` kernel
+    under the exp-space bank ``be_exp_b``, or, without ``use_kernels``,
+    through the plain scan under the log-space bank of
+    ``p_breakpoint_b``."""
+    if spec.use_kernels:
+        return fb_scan.forward_backward_chain_groups(
+            frame_b, spec.static_bank, be_exp_b, spec.chain_groups,
+            spec.chain_seg_map, kernel=True)
+    return fb_scan.forward_backward_chain_groups(
+        frame_b, spec.static_bank, breakend_tmats(spec, p_breakpoint_b),
+        spec.chain_groups, spec.chain_seg_map)
 
 
 def update_p_breakpoint_restarts(spec, state_b, be_exp_b):
@@ -895,20 +943,34 @@ def update_p_allele_swap(spec, params, state, ll_alle):
 
 
 def update_p_cn(spec, params, state, ll_tot, ll_alle, be_exp=None):
-    """Chain update of one restart through the single-restart chain
+    """Chain update of one restart: the blocked two-pass scan when
+    ``spec.num_chain_blocks`` > 1; with ``spec.chain_devices`` set, its
+    chains split over them (the ``fb_grouped`` kernel per group, or the
+    plain scan without ``use_kernels``); else the single-restart chain
     kernel, or the scan under the full log-space bank. ``be_exp`` (J, S,
     S) optionally supplies the kernel's exp-space breakend bank of
     ``state.p_breakpoint`` (the sweep builds it once and shares it with the
     breakpoint update)."""
     frame = _mix_framelogprob(spec, one(params), one(state), ll_tot[None],
                               ll_alle[None])[0]
+    if spec.num_chain_blocks > 1:
+        alphas, betas, log_norm = fb_blocked.forward_backward_chains_blocked(
+            frame, full_bank(spec, state.p_breakpoint), spec.chain_bank_idx,
+            spec.chain_seg_map, spec.chain_last, spec.num_chain_blocks,
+            block_devices=spec.block_devices)
+        return _with_chain(state, frame, alphas, betas, log_norm)
+    if be_exp is None and spec.use_kernels:
+        be_exp = breakend_tmats_exp(spec, state.p_breakpoint[None])[0]
+    if spec.chain_devices is not None:
+        alphas, betas, log_norm = _chain_groups(
+            spec, frame[None], state.p_breakpoint[None],
+            be_exp[None] if spec.use_kernels else None)
+        return _with_chain(state, frame, alphas[0], betas[0], log_norm[0])
     if not spec.use_kernels:
         alphas, betas, log_norm = fb_scan.forward_backward_chains(
             frame, full_bank(spec, state.p_breakpoint), spec.chain_bank_idx,
             spec.chain_seg_map, spec.chain_last)
         return _with_chain(state, frame, alphas, betas, log_norm)
-    if be_exp is None:
-        be_exp = breakend_tmats_exp(spec, state.p_breakpoint[None])[0]
     alphas, betas, log_norm = fb_chains.forward_backward_chains(
         frame, spec.static_bank, be_exp, spec.chain_bank_idx,
         spec.chain_seg_map, spec.chain_last)

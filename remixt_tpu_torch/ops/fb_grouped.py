@@ -78,13 +78,18 @@ def gather_frames(frame_b, chain_seg_map):
     return frame_ext[:, chain_seg_map.reshape(-1).long()].reshape(R, Q, L, S)
 
 
-def _scatter_and_norm(alphas_b, betas_b, chain_seg_map, chain_last, N):
-    """(R, Q, L, S) chain outputs → (R, N, S) segment layout and the
-    per-restart log normalizer (sum of per-chain log norms)."""
-    R, Q, L, S = alphas_b.shape
+def chain_log_norm(alphas_b, chain_last):
+    """Per-restart log normalizer of chain-major alphas (R, Q, L, S): the
+    sum of the chains' log norms at their last positions."""
+    Q = alphas_b.shape[1]
     last = chain_last.long().to(alphas_b.device)
     alpha_last = alphas_b[:, torch.arange(Q, device=alphas_b.device), last]
-    log_norm = logsumexp(alpha_last, dim=-1).sum(dim=-1)
+    return logsumexp(alpha_last, dim=-1).sum(dim=-1)
+
+
+def segment_layout(alphas_b, betas_b, chain_seg_map, N):
+    """(R, Q, L, S) chain outputs → (R, N, S) segment layout."""
+    R, Q, L, S = alphas_b.shape
     # every segment sits at exactly one chain position: gather, no scatter
     flat = chain_seg_map.reshape(-1).long()
     pos = torch.empty(N, dtype=torch.long, device=flat.device)
@@ -92,7 +97,14 @@ def _scatter_and_norm(alphas_b, betas_b, chain_seg_map, chain_last, N):
     pos[flat[real]] = torch.arange(Q * L, device=flat.device)[real]
     alphas = alphas_b.reshape(R, Q * L, S)[:, pos]
     betas = betas_b.reshape(R, Q * L, S)[:, pos]
-    return alphas, betas, log_norm
+    return alphas, betas
+
+
+def _scatter_and_norm(alphas_b, betas_b, chain_seg_map, chain_last, N):
+    """(R, Q, L, S) chain outputs → (R, N, S) segment layout and the
+    per-restart log normalizer (sum of per-chain log norms)."""
+    log_norm = chain_log_norm(alphas_b, chain_last)
+    return segment_layout(alphas_b, betas_b, chain_seg_map, N) + (log_norm,)
 
 
 def _contract(u, b, reverse, static_exp, be_exp_b):
@@ -360,20 +372,26 @@ def forward_backward_chains_grouped(frame_b, static_bank, be_exp_b,
     ``scaled`` picks the scaled-linear recursion; ``None`` means
     ``SCALED_LINEAR``. CPU tensors take the plain version; CUDA tensors
     launch the kernel or raise."""
+    N = frame_b.shape[1]
+    alphas_b, betas_b = chain_major(
+        gather_frames(frame_b, chain_seg_map), torch.exp(static_bank),
+        be_exp_b, chain_bank_idx, scaled)
+    return _scatter_and_norm(alphas_b, betas_b, chain_seg_map, chain_last, N)
+
+
+def chain_major(frames, static_exp, be_exp_b, chain_bank_idx, scaled=None):
+    """The kernel on chain-major frames (R, Q, L, S), or its plain version
+    on CPU tensors: chain-major alphas and betas. ``scaled`` as in
+    :func:`forward_backward_chains_grouped`; CUDA tensors launch the
+    kernel or raise."""
     scaled = SCALED_LINEAR if scaled is None else scaled
-    R, N, S = frame_b.shape
-    frames = gather_frames(frame_b, chain_seg_map)
-    static_exp = torch.exp(static_bank)
-    if frame_b.device.type == 'cuda':
+    if frames.device.type == 'cuda':
         launch = fb_grouped_scaled_cuda if scaled else fb_grouped_cuda
-        alphas_b, betas_b = launch(
+        return launch(
             frames.contiguous(), static_exp.contiguous(),
             be_exp_b.contiguous(), chain_bank_idx.to(torch.int32).contiguous())
-    elif frame_b.device.type == 'cpu':
+    if frames.device.type == 'cpu':
         plain = (fb_grouped_scaled_reference if scaled
                  else fb_grouped_reference)
-        alphas_b, betas_b = plain(frames, static_exp, be_exp_b,
-                                  chain_bank_idx)
-    else:
-        raise ValueError('unsupported device {}'.format(frame_b.device))
-    return _scatter_and_norm(alphas_b, betas_b, chain_seg_map, chain_last, N)
+        return plain(frames, static_exp, be_exp_b, chain_bank_idx)
+    raise ValueError('unsupported device {}'.format(frames.device))

@@ -14,11 +14,19 @@ positions.
   ``log(s) + max``: no floor on ``s``, so a state whose every incoming
   path underflows goes to ``-inf``, as in the JAX scan. The kernels'
   ``TINY`` floor (``fb_grouped.TINY``) is kernel semantics only.
+* ``forward_backward_chain_groups`` is the restart-batched chain
+  update with its chains split into contiguous groups over devices
+  (``chain_groups``), the route of a chain-sharded spec
+  (``parallel/chain.py``): each group runs this scan, as the JAX scan runs
+  under a chain-axis sharding constraint, or with ``kernel`` the
+  ``fb_grouped`` kernel on its device.
 * ``viterbi_chains`` decodes on every route.
 
 The step loops read their schedules from tensors moved to the device once
 per call and never wait on the device inside the loop.
 """
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -112,32 +120,11 @@ def build_restart_plan(chain_bank_idx_np, num_static_bank):
                 sched_slot=sched_slot, kmax=kmax)
 
 
-@torch.no_grad()
-def forward_backward_chains_restarts(frame_b, static_bank, be_bank_b, plan,
-                                     chain_seg_map, chain_last):
-    """Restart-batched chain forward-backward.
-
-    Each step contracts every lane with its static class matrix, gathered
-    once and shared by the restarts (``'rqi,qij->rqj'``), then replaces
-    the lanes whose pair is a breakend, at most ``kmax`` of them, by their
-    product with that restart's breakend matrix, as the plan schedules.
-
-    Args:
-        frame_b: (R, N, S) per-restart emission log probs
-        static_bank: (num_static, S, S) shared transition log-weights
-        be_bank_b: (R, J, S, S) per-restart breakend log-weights
-        plan: ``build_restart_plan`` output
-        chain_seg_map: (Q, L) global segment index, N on pads
-        chain_last: (Q,) last real position per chain
-
-    Returns alphas (R, N, S), betas (R, N, S), log_norm (R,).
-    """
-    N = frame_b.shape[1]
-    device = frame_b.device
-    F = fb_grouped.gather_frames(frame_b, chain_seg_map)
-    exp_static = torch.exp(static_bank)
-    exp_be = torch.exp(be_bank_b)
-
+def _restarts_scan(F, exp_static, exp_be, plan):
+    """The restart-batched scan of chain-major frames ``F`` (R, Q, L, S)
+    under exp-space static (num_static, S, S) and breakend (R, J, S, S)
+    matrices and the plan's schedule; chain-major alphas and betas."""
+    device = F.device
     # the schedule, on the device once; each step's count of fix-ups is a
     # host number, so the loop never reads the device
     counts = (plan['sched_lane'] >= 0).sum(axis=1).tolist()
@@ -160,9 +147,121 @@ def forward_backward_chains_restarts(frame_b, static_bank, be_bank_b, plan,
             s.index_copy_(1, lane, torch.einsum(eqb, u[:, lane], M))
         return s
 
-    alphas, betas = _scan(F, contract)
-    return fb_grouped._scatter_and_norm(alphas, betas, chain_seg_map,
-                                        chain_last, N)
+    return _scan(F, contract)
+
+
+@torch.no_grad()
+def forward_backward_chains_restarts(frame_b, static_bank, be_bank_b, plan,
+                                     chain_seg_map, chain_last):
+    """Restart-batched chain forward-backward.
+
+    Each step contracts every lane with its static class matrix, gathered
+    once and shared by the restarts (``'rqi,qij->rqj'``), then replaces
+    the lanes whose pair is a breakend, at most ``kmax`` of them, by their
+    product with that restart's breakend matrix, as the plan schedules.
+    It is :func:`forward_backward_chain_groups` with every chain in one
+    group on the inputs' device.
+
+    Args:
+        frame_b: (R, N, S) per-restart emission log probs
+        static_bank: (num_static, S, S) shared transition log-weights
+        be_bank_b: (R, J, S, S) per-restart breakend log-weights
+        plan: ``build_restart_plan`` output
+        chain_seg_map: (Q, L) global segment index, N on pads
+        chain_last: (Q,) last real position per chain
+
+    Returns alphas (R, N, S), betas (R, N, S), log_norm (R,).
+    """
+    group = ChainGroup(device=frame_b.device,
+                       rows=slice(0, chain_seg_map.shape[0]), slots=None,
+                       plan=plan, last=chain_last, bank_idx=None)
+    return forward_backward_chain_groups(frame_b, static_bank, be_bank_b,
+                                         [group], chain_seg_map)
+
+
+class ChainGroup(NamedTuple):
+    """A contiguous group of chains and the device that scans them:
+    ``rows`` its chains, ``slots`` the breakends of its pairs (on the
+    inputs' device; None: all of them, in order), ``plan`` its restart
+    plan and ``bank_idx`` (Q_g, T) its int32 bank indices on its device,
+    both over those breakends renumbered from 0, ``last`` its chains' last
+    positions."""
+    device: torch.device
+    rows: slice
+    slots: torch.Tensor
+    plan: dict
+    last: torch.Tensor
+    bank_idx: torch.Tensor
+
+
+def chain_groups(chain_bank_idx, chain_last, num_static_bank, devices, home):
+    """The chains split into contiguous groups, one per device of
+    ``devices`` (``np.array_split`` of the Q axis; a device left without a
+    chain gets no group). ``chain_bank_idx`` (Q, T) and ``chain_last``
+    (Q,) are host arrays; ``home`` is the device of the scan's inputs."""
+    cbi = np.asarray(chain_bank_idx)
+    groups = []
+    for device, rows in zip(devices,
+                            np.array_split(np.arange(cbi.shape[0]),
+                                           len(devices))):
+        if not len(rows):
+            continue
+        device = torch.device(device)
+        part = cbi[rows]
+        is_be = part >= num_static_bank
+        slots = np.unique(part[is_be] - num_static_bank)
+        local = np.where(
+            is_be, num_static_bank + np.searchsorted(
+                slots, part - num_static_bank), part)
+        groups.append(ChainGroup(
+            device=device,
+            rows=slice(int(rows[0]), int(rows[-1]) + 1),
+            slots=torch.as_tensor(slots, dtype=torch.long, device=home),
+            plan=build_restart_plan(local, num_static_bank),
+            last=torch.as_tensor(np.asarray(chain_last)[rows],
+                                 dtype=torch.long, device=device),
+            bank_idx=torch.as_tensor(local, dtype=torch.int32,
+                                     device=device)))
+    return groups
+
+
+@torch.no_grad()
+def forward_backward_chain_groups(frame_b, static_bank, be_bank_b, groups,
+                                  chain_seg_map, kernel=False):
+    """The restart-batched chain forward-backward with its chains split
+    into groups (``chain_groups``): each group's frames and breakend
+    matrices go to its device, which runs the plain scan under the
+    log-space breakend bank ``be_bank_b``, or with ``kernel`` the
+    ``fb_grouped`` kernel (its plain version on CPU tensors) under the
+    exp-space bank ``be_bank_b``. The per-group log normalizers are summed
+    and the alphas and betas come back to the inputs' device, in segment
+    layout through ``chain_seg_map``. Same contract as
+    :func:`forward_backward_chains_restarts` otherwise."""
+    home = frame_b.device
+    N = frame_b.shape[1]
+    F = fb_grouped.gather_frames(frame_b, chain_seg_map)
+    exp_static = torch.exp(static_bank)
+    exp_be = be_bank_b if kernel else torch.exp(be_bank_b)
+    alphas, betas, log_norm = [], [], 0
+    for group in groups:
+        device = group.device
+        be = exp_be if group.slots is None else exp_be[:, group.slots]
+        args = (F[:, group.rows].to(device), exp_static.to(device),
+                be.to(device))
+        if kernel:
+            a, b = fb_grouped.chain_major(*args, group.bank_idx)
+        else:
+            a, b = _restarts_scan(*args, group.plan)
+        log_norm = log_norm + fb_grouped.chain_log_norm(a, group.last).to(
+            home)
+        alphas.append(a.to(home))
+        betas.append(b.to(home))
+    if len(groups) > 1:
+        alphas, betas = torch.cat(alphas, dim=1), torch.cat(betas, dim=1)
+    else:
+        (alphas,), (betas,) = alphas, betas
+    alphas, betas = fb_grouped.segment_layout(alphas, betas, chain_seg_map, N)
+    return alphas, betas, log_norm
 
 
 def viterbi_chains(framelogprob, bank, chain_bank_idx, chain_seg_map,

@@ -256,7 +256,8 @@ VERBATIM = [('segalg', name) for name in (
     ('config', 'get_chromosomes'),
     ('analysis.segment', '_merge_intervals'),
     ('analysis.haplotype', '_haplotype_blocks'),
-    ('analysis.haplotype', '_run')] + [
+    ('analysis.haplotype', '_run'),
+    ('parallel.distributed', 'factor_devices')] + [
     ('analysis.gcbias', name) for name in (
         'lowess', '_GenomeCoords', 'GCCurve', '_accumulate_matching_counts',
         '_fragment_start_probabilities', 'calculate_segment_gc_map_bias')]
